@@ -20,9 +20,19 @@ Phases, each of which fails the run (exit code 1) on any error:
    members on both backends (and on "gather") against a "slice"-backend
    run, in bf16 and again in float32;
    per-bucket decode-step times beside the FFN-weight-bytes bound, with
-   each step's device time per kernel from torch.profiler.
+   each step's device time per kernel from torch.profiler;
+4. train  — the backward kernels (4-7) against their plain versions at the
+   training path's shapes (dp 2/4/8, every bias, M 1/100/2048, f32 and
+   bf16) and timed at M 2048, dp 2; ``lm_loss`` gradients of qwen2-1.5b at
+   full width in float32 on the "cuda" and "fused" backends against
+   "slice" (dp 2/4/8), dropped-block weight gradients exactly zero (f32 and
+   bf16); 8 steps of ``Trainer`` + ``AdamW`` in bf16 on "cuda" and then
+   "fused" (batch 4 x 512), launch counts reset just before and read just
+   after each; eager train-step times per (backend, dp) with each step's
+   device time per kernel class from torch.profiler.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Prints per-phase seconds, the card's name and power limit, a
+``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 without a CUDA device or without the repository beside it.
@@ -508,6 +518,317 @@ def log_profile(prof):
 
 
 # ==========================================================================
+# phase 4: train qwen2-1.5b at full width
+# ==========================================================================
+
+TRAIN_M = (1, 100, 2048)      # a ragged tile, a partial one, a train step
+# f32 gradients at full width: the backends differ only in summation order
+# (~1e-7 relative per product), compounded through 28 layers forward and
+# backward — 1e-3 of each leaf's largest gradient.
+F32_GRAD_TOL = 1e-3
+
+
+def backward_kernels(K):
+    return [K.COLS_DGRAD, K.COLS_WGRAD, K.ROWS_DGRAD, K.ROWS_WGRAD]
+
+
+def backward_kernel_phase(torch, K, shapes):
+    """Kernels 4-7 against their plain versions at the training path's
+    shapes (same tolerances as phase 2: the wgrads contract over up to
+    2048 tokens, the dgrads over up to 4480 kept units or 1536), then timed
+    at M 2048, dp 2, bf16.  Returns (worst abs, worst rel, timing rows)."""
+    d_model, d_ff, block = shapes
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    names = [k.name for k in backward_kernels(K)]
+    worst, worst_rel = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    checks = 0
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        tol = KERNEL_TOL[dname]
+        w = (rn(d_model, d_ff) / d_model ** 0.5).to(dt)
+        wd = (rn(d_ff, d_model) / d_ff ** 0.5).to(dt)
+        for m in TRAIN_M:
+            a, dcd = rn(m, d_model).to(dt), rn(m, d_model).to(dt)
+            for dp in (2, 4, 8):
+                dcc, ac = rn(m, d_ff // dp).to(dt), rn(m, d_ff // dp).to(dt)
+                kw = dict(dp=dp, block=block)
+                cases = [
+                    (K.COLS_WGRAD, lambda: K.rdp_cols_wgrad(a, dcc, **kw),
+                     lambda: K.rdp_cols_wgrad_plain(a, dcc, **kw)),
+                    (K.ROWS_WGRAD, lambda: K.rdp_rows_wgrad(ac, dcd, **kw),
+                     lambda: K.rdp_rows_wgrad_plain(ac, dcd, **kw))]
+                for b in range(dp):
+                    cases += [
+                        (K.COLS_DGRAD,
+                         lambda b=b: K.rdp_cols_dgrad(dcc, w, b, **kw),
+                         lambda b=b: K.rdp_cols_dgrad_plain(dcc, w, b, **kw)),
+                        (K.ROWS_DGRAD,
+                         lambda b=b: K.rdp_rows_dgrad(dcd, wd, b, **kw),
+                         lambda b=b: K.rdp_rows_dgrad_plain(dcd, wd, b,
+                                                            **kw))]
+                for kern, fn, plain in cases:
+                    got, ref = fn(), plain().float()
+                    torch.cuda.synchronize()
+                    abs_err = float((got.float() - ref).abs().max())
+                    err = abs_err / max(float(ref.abs().max()), 1e-30)
+                    require(bool(torch.isfinite(got).all()),
+                            f"{kern.name}: non-finite output")
+                    require(err <= tol, f"{kern.name} {dname} M={m} dp={dp}"
+                            f": rel err {err:.3e} > {tol}")
+                    if dname == "bfloat16":
+                        worst[kern.name] = max(worst[kern.name], abs_err)
+                        worst_rel[kern.name] = max(worst_rel[kern.name], err)
+                    checks += 1
+    log(f"[train] {checks} backward kernel-vs-plain checks passed (f32 tol "
+        f"{KERNEL_TOL['float32']}, bf16 tol {KERNEL_TOL['bfloat16']} of "
+        f"max|ref|); bf16 worst max-abs {worst}, relative {worst_rel}")
+    return worst, worst_rel, backward_timing(torch, K, shapes, g)
+
+
+def backward_timing(torch, K, shapes, g, m=2048, dp=2, b=1):
+    """bf16 times at M 2048 (the train step's tokens), dp 2: kernel, plain
+    version, and one library matmul on pre-gathered contiguous compact
+    operands as the yardstick.  All four are bound by operations."""
+    from repro_torch.core.patterns import kept_unit_indices
+    d_model, d_ff, block = shapes
+    dev, dt = "cuda", torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa
+    nc = d_ff // dp
+    w, wd = rn(d_model, d_ff) / d_model ** 0.5, rn(d_ff, d_model) / d_ff ** .5
+    idx = kept_unit_indices(d_ff, dp, b, block, device=dev)
+    wc, wr = w[:, idx].contiguous(), wd[idx].contiguous()
+    a, dcd, dcc, ac = rn(m, d_model), rn(m, d_model), rn(m, nc), rn(m, nc)
+    kw = dict(dp=dp, block=block)
+    nbytes = 2 * (m * d_model + m * nc + d_model * nc)
+    flops = 2 * m * d_model * nc
+    cases = {
+        K.COLS_DGRAD.name: (lambda i: K.rdp_cols_dgrad(dcc, w, b, **kw),
+                            lambda i: K.rdp_cols_dgrad_plain(dcc, w, b, **kw),
+                            lambda i: torch.matmul(dcc, wc.t())),
+        K.COLS_WGRAD.name: (lambda i: K.rdp_cols_wgrad(a, dcc, **kw),
+                            lambda i: K.rdp_cols_wgrad_plain(a, dcc, **kw),
+                            lambda i: torch.matmul(a.t(), dcc)),
+        K.ROWS_DGRAD.name: (lambda i: K.rdp_rows_dgrad(dcd, wd, b, **kw),
+                            lambda i: K.rdp_rows_dgrad_plain(dcd, wd, b,
+                                                             **kw),
+                            lambda i: torch.matmul(dcd, wr.t())),
+        K.ROWS_WGRAD.name: (lambda i: K.rdp_rows_wgrad(ac, dcd, **kw),
+                            lambda i: K.rdp_rows_wgrad_plain(ac, dcd, **kw),
+                            lambda i: torch.matmul(ac.t(), dcd)),
+    }
+    rows = []
+    for name, (kern, plain, lib) in cases.items():
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        t = lambda f: cuda_ms(torch, f, iters=5, warmup=2,  # noqa: E731
+                              replays=3)
+        rec = {"name": name, "dp": dp, "M": m, "dtype": "bfloat16",
+               "ms": t(kern), "plain_ms": t(plain), "library_ms": t(lib),
+               "bound_ms": bnd, "bound_by": by}
+        rows.append(rec)
+        log(f"[time] {name:16s} dp={dp} M={m}: kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return rows
+
+
+def _dropped_zero(torch, params, grads, leaves, d_ff, dp, b, block):
+    """Are the gradients of every layer's dropped FFN blocks exactly zero
+    (and the kept ones not all zero)?"""
+    from repro_torch.core.patterns import kept_unit_indices
+    kept = kept_unit_indices(d_ff, dp, b, block, device="cuda")
+    mask = torch.ones(d_ff, dtype=torch.bool, device="cuda")
+    mask[kept] = False
+    gmap = {id(p): gr for p, gr in zip(leaves, grads)}
+    for lp in params["layers"]:
+        ffn = lp["ffn"]
+        gd = gmap[id(ffn["w_down"])]
+        if bool((gd[mask] != 0).any()) or not bool((gd[kept] != 0).any()):
+            return False
+        for name in ("w_up", "w_gate"):
+            gu = gmap[id(ffn[name])]
+            if bool((gu[:, mask] != 0).any()) \
+                    or not bool((gu[:, kept] != 0).any()):
+                return False
+    return True
+
+
+def grad_parity_phase(torch, rt, cfg):
+    """One forward + backward of lm_loss at full width (batch 1 x 128) per
+    dp in (2, 4, 8): every weight gradient on "cuda" and "fused" against
+    "slice" — held to F32_GRAD_TOL of the leaf's max|g| in float32,
+    reported in bf16 — and dropped blocks' gradients exactly zero in
+    both."""
+    import dataclasses
+
+    import numpy as np
+    block = cfg.d_ff // cfg.pattern_nb
+    plan = rt.core.build_plan("rdp", 0.5, nb=cfg.pattern_nb, dp_max=8,
+                              block=block)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 129))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = rt.models.materialize(0, rt.models.init_lm(c),
+                                       device="cuda")
+        leaves = rt.tree.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+
+        def grads(backend, dp, b):
+            pat = plan.with_backend(backend).bind(dp, b)
+            loss, _ = rt.models.lm_loss(c, params, batch, pat)
+            return torch.autograd.grad(loss, leaves)
+
+        for dp in (2, 4, 8):
+            b = dp - 1
+            ref = grads("slice", dp, b)
+            for backend in ("cuda", "fused"):
+                got = grads(backend, dp, b)
+                rel = max(float((x.float() - r.float()).abs().max())
+                          / max(float(r.float().abs().max()), 1e-30)
+                          for x, r in zip(got, ref))
+                zeros = _dropped_zero(torch, params, got, leaves, c.d_ff,
+                                      dp, b, block)
+                require(zeros, f"{dtype} {backend} dp={dp}: dropped-block "
+                        f"weight gradients not exactly zero")
+                if dtype == "float32":
+                    require(rel <= F32_GRAD_TOL, f"f32 {backend} dp={dp}: "
+                            f"grad rel err {rel:.3e} > {F32_GRAD_TOL}")
+                out.append({"dtype": dtype, "backend": backend, "dp": dp,
+                            "bias": b, "max_leaf_rel_err": rel,
+                            "dropped_zero": zeros})
+                log(f"[grads] {dtype} {backend} dp={dp} b={b}: max over "
+                    f"leaves of max|g - g_slice| / max|g_slice| = {rel:.3e}"
+                    + (f" (tol {F32_GRAD_TOL})" if dtype == "float32"
+                       else " (reported)") + "; dropped blocks exactly 0")
+                del got
+            del ref
+        del params, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_run(torch, K, rt, cfg, plan, backend, steps=8):
+    """``Trainer`` + ``AdamW`` for ``steps`` steps on ``backend`` from
+    fresh seed-0 weights, launch counts reset just before and read just
+    after."""
+    params = rt.models.materialize(0, rt.models.init_lm(cfg), device="cuda")
+    data = rt.data.SyntheticLMData(vocab=cfg.vocab, seq_len=512,
+                                   global_batch=4)
+    trainer = rt.train.Trainer(
+        cfg, rt.optim.AdamW(), params, plan=plan.with_backend(backend),
+        tcfg=rt.train.TrainerConfig(steps=steps, log_every=1),
+        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t = time.perf_counter()
+    hist = trainer.run(data.batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k.name: k.launches for k in K.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    import math
+    require(len(hist) == steps, f"{backend}: {len(hist)} steps")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist), f"{backend}: non-finite loss or grad norm")
+    require(any(h["dp"] > 1 for h in hist), f"{backend}: no dp > 1 step")
+    trainer.obs.watchdog.assert_clean()
+    log(f"[train] {backend}: {steps} steps in {wall:.2f} s, peak "
+        f"{peak_gb:.1f} GB, buckets {[(h['dp'], h['bias']) for h in hist]}")
+    log(f"[train] {backend}: losses {[round(h['loss'], 4) for h in hist]}, "
+        f"grad norms {[round(h['grad_norm'], 3) for h in hist]}")
+    log(f"[train] launches on the {backend}-backend train path: {launches}")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return {"history": hist, "wall_s": wall, "peak_gb": peak_gb,
+            "launches": launches}
+
+
+def train_step_bound_ms(cfg, tokens: int, dp: int, n_params: int):
+    """Least times of one train step: (matmul FLOPs — 6 per weight per
+    token, FFN weights at 1/dp, attention scores left out — at the bf16
+    peak, AdamW's state traffic — 24 B a parameter: bf16 param read and
+    written, f32 grad read, f32 moments read and written — at the HBM
+    rate), in ms."""
+    attn = cfg.d_model * cfg.head_dim * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    ffn = 3 * cfg.d_model * cfg.d_ff / dp
+    flops = 6 * tokens * (cfg.n_layers * (attn + ffn)
+                          + cfg.d_model * cfg.vocab)
+    return (flops / PEAK_FLOPS["bfloat16"] * 1e3,
+            24 * n_params / HBM_BYTES_PER_S * 1e3)
+
+
+def train_step_table(torch, rt, cfg, plan):
+    """Eager train step (forward, backward, clip, AdamW at lr 0 so the
+    weights stay put) per (backend, dp) at batch 4 x 512: host-clock ms
+    with a synchronize, and the step's device time per kernel class from
+    torch.profiler."""
+    params = rt.models.materialize(0, rt.models.init_lm(cfg), device="cuda")
+    opt = rt.optim.AdamW()
+    state = opt.init(params)
+    batch = rt.data.SyntheticLMData(vocab=cfg.vocab, seq_len=512,
+                                    global_batch=4).batch(0)
+    n_params = sum(t.numel() for t in rt.tree.tree_leaves(params))
+    rows = []
+    configs = [("dense", 1)] + [(be, dp) for be in ("slice", "cuda", "fused")
+                                for dp in (2, 4, 8)]
+    for backend, dp in configs:
+        pat = (plan.with_backend(backend).bind(dp, 0) if dp > 1
+               else rt.core.IDENTITY)
+        fn = rt.train.make_train_step(cfg, opt, pat=pat, device="cuda")
+
+        def step(_i=0):
+            fn(params, state, batch, 0.0)
+
+        step()
+        torch.cuda.synchronize()
+        n = 3
+        t = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / n * 1e3
+        flop_ms, adam_ms = train_step_bound_ms(cfg, batch["tokens"].size,
+                                               dp, n_params)
+        rows.append({"backend": backend, "dp": dp, "step_ms": host_ms,
+                     "flop_bound_ms": flop_ms, "adam_bytes_bound_ms": adam_ms,
+                     "kernels": profile_step(torch, step, host_ms, n=1)})
+        log(f"[step] {backend:5s} dp={dp}: eager train step {host_ms:.1f} "
+            f"ms (bounds: matmul FLOPs {flop_ms:.2f} ms + AdamW bytes "
+            f"{adam_ms:.2f} ms)")
+        log_profile(rows[-1]["kernels"])
+    del params, state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(torch, K, rt, shapes):
+    cfg = rt.configs.get_config("qwen2_1_5b")
+    worst, worst_rel, table = backward_kernel_phase(torch, K, shapes)
+    grads = grad_parity_phase(torch, rt, cfg)
+    block = cfg.d_ff // cfg.pattern_nb
+    plan = rt.core.build_plan("rdp", 0.5, nb=cfg.pattern_nb, dp_max=8,
+                              block=block, backend="cuda")
+    runs = {be: train_run(torch, K, rt, cfg, plan, be)
+            for be in ("cuda", "fused")}
+    for be, run in runs.items():
+        for k in backward_kernels(K):
+            require(run["launches"][k.name] > 0, f"the {be}-backend train "
+                    f"path did not launch {k.name}")
+    require(runs["fused"]["launches"][K.RDP_COLS.name] > 0,
+            "the fused backward did not rematerialize with rdp_matmul_cols")
+    require(runs["fused"]["launches"][K.FUSED_FFN.name] > 0,
+            "the fused-backend train path did not launch its forward kernel")
+    steps = train_step_table(torch, rt, cfg, plan)
+    return {"worst": worst, "worst_rel": worst_rel, "kernel_times": table,
+            "grads": grads, "runs": runs, "steps": steps}
+
+
+# ==========================================================================
 
 def main() -> int:
     try:
@@ -526,8 +847,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import repro_torch.configs
     import repro_torch.core
+    import repro_torch.data
     import repro_torch.models
+    import repro_torch.optim
     import repro_torch.serve
+    import repro_torch.train
     import repro_torch.tree
     from repro_torch import kernels as K
     rt = repro_torch
@@ -536,36 +860,58 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
-    t = time.perf_counter()
-    built = K.build_all(force=True)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    built = timed("build", lambda: K.build_all(force=True))
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in built.items()})} "
-        f"in {time.perf_counter() - t:.2f} s")
+        f"in {phase_s['build']:.2f} s")
 
     shapes = (1536, 8960, 70)       # qwen2-1.5b: d_model, d_ff, 8960/128
-    worst, worst_rel, table = kernel_phase(torch, K, shapes)
-    serve = serve_phase(torch, K, rt)
+    worst, worst_rel, table = timed("kernels", kernel_phase, torch, K, shapes)
+    serve = timed("serve", serve_phase, torch, K, rt)
+    train = timed("train", train_phase, torch, K, rt, shapes)
+    log(f"[phases] seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
-    main_shape = {"dp": 2, "M": 8}
+    # launches on the main paths: serving (cuda, fused) and training (cuda,
+    # fused), each counted from zero just before its run
+    by_path = {k.name: {"serve": serve["launches"][k.name],
+                        **{f"train_{be}": run["launches"][k.name]
+                           for be, run in train["runs"].items()}}
+               for k in K.KERNELS}
+    worst |= train["worst"]
+    worst_rel |= train["worst_rel"]
+    fwd_shape = {"dp": 2, "M": 8}
     kernels_line = []
     for k in K.KERNELS:
-        rec = next(r for r in table if r["name"] == k.name
-                   and r["dp"] == main_shape["dp"]
-                   and r["M"] == main_shape["M"])
+        rec = next((r for r in table if r["name"] == k.name
+                    and r["dp"] == fwd_shape["dp"]
+                    and r["M"] == fwd_shape["M"]), None)
+        if rec is None:
+            rec = next(r for r in train["kernel_times"] if r["name"] == k.name)
         kernels_line.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": serve["launches"][k.name],
+            "replaces": k.replaces,
+            "launches": sum(by_path[k.name].values()),
+            "launches_by_path": by_path[k.name],
             "max_abs_err": worst[k.name], "max_rel_err": worst_rel[k.name],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": f"times at M={main_shape['M']} dp={main_shape['dp']} "
-                     f"bf16; errors over the bf16 sweep"})
+            "shape": f"times at M={rec['M']} dp={rec['dp']} bf16; errors "
+                     f"over the bf16 sweep"})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": built, "kernel_times": table, "serve": serve,
-        "kernels": kernels_line,
+        "build_s": built, "phase_s": phase_s, "kernel_times": table,
+        "serve": serve, "train": train, "kernels": kernels_line,
         "total_s": time.perf_counter() - t_start}, indent=1, default=float))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

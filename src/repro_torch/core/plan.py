@@ -15,8 +15,9 @@ concrete (family, dp, bias) pattern, consumed by the model layers.
 
 The "cuda" backend is the counterpart of the JAX "pallas" one: the compact
 up/gate/down products run through the hand-written kernels in
-``kernels/rdp_matmul``; "fused" runs the whole FFN in one kernel
-(``kernels/fused_ffn``).  Single-device only: the JAX package's mesh
+``kernels/rdp_matmul`` and their gradients through ``kernels/rdp_matmul_bwd``;
+"fused" runs the whole FFN forward in one kernel (``kernels/fused_ffn``).
+Every backend is differentiable.  Single-device only: the JAX package's mesh
 constraints and shard_map dispatch have no counterpart here yet.
 """
 from __future__ import annotations
@@ -41,21 +42,29 @@ class BucketSupersetViolation(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """One execution strategy for compact pattern matmuls (forward only:
-    the backward kernels come with the training slice)."""
+    """One execution strategy for compact pattern matmuls.
+
+    ``differentiable`` declares that autograd flows through the backend's
+    pattern matmuls — PyTorch's own adjoints ("slice"/"gather") or the
+    autograd Functions over the backward kernels ("cuda"/"fused",
+    kernels/autodiff.py, kernels/fused_ffn.py).  The Trainer rejects
+    backends that are not at construction.
+    """
 
     name: str
     doc: str = ""
+    differentiable: bool = True
 
 
 BACKENDS: dict[str, Backend] = {}
 
 
-def register_backend(name: str, doc: str = "") -> Backend:
+def register_backend(name: str, doc: str = "", *,
+                     differentiable: bool = True) -> Backend:
     """Register an execution backend.  Raises on duplicates."""
     if name in BACKENDS:
         raise ValueError(f"backend {name!r} already registered")
-    BACKENDS[name] = Backend(name, doc)
+    BACKENDS[name] = Backend(name, doc, differentiable)
     return BACKENDS[name]
 
 
@@ -73,11 +82,15 @@ register_backend("slice", "strided block slices of the weights, then "
 register_backend("gather", "index_select over kept unit indices, then "
                            "library matmuls")
 register_backend("cuda", "compact CUDA kernels: kept column/row blocks are "
-                         "the only weights read (kernels/rdp_matmul); their "
-                         "plain versions on CPU tensors")
+                         "the only weights read, forward (kernels/"
+                         "rdp_matmul) and backward (kernels/rdp_matmul_bwd "
+                         "through kernels/autodiff); their plain versions "
+                         "on CPU tensors")
 register_backend("fused", "one CUDA kernel for up + activation + gate + "
-                          "down over kept blocks (kernels/fused_ffn); its "
-                          "plain version on CPU tensors")
+                          "down over kept blocks (kernels/fused_ffn); the "
+                          "backward rematerializes the hidden activation "
+                          "and runs the compact backward kernels; plain "
+                          "versions on CPU tensors")
 
 
 # ==========================================================================

@@ -40,6 +40,21 @@ __device__ __forceinline__ int64_t kept_src(int c, int block, int dp,
   return (int64_t)((bias + j * dp) % nb) * block + (c % block);
 }
 
+// kept_src for c < N/dp without integer division, for the tiled loaders,
+// which map every weight element they load; inv = 1.f / block.
+// (c + 0.5) / block lies at least 0.5 / block from an integer, and float
+// rounding moves it by less than (c + 0.5) / block * 2^-22, so the
+// truncated product is exact for c < 2^20.  bias < nb and j*dp <= nb - dp,
+// so one conditional subtraction reduces mod nb.
+__device__ __forceinline__ int64_t kept_src_fast(int c, float inv,
+                                                 int block, int dp,
+                                                 int bias, int nb) {
+  const int j = __float2int_rz(((float)c + 0.5f) * inv);
+  int s = bias + j * dp;
+  if (s >= nb) s -= nb;
+  return (int64_t)s * block + (c - j * block);
+}
+
 // Activation operand: row-major [rows, cols], zero outside.
 template <typename T> struct DenseA {
   const T* p;
@@ -53,9 +68,11 @@ template <typename T> struct DenseA {
 template <typename T> struct KeptColsB {
   const T* w;
   int K, N, Nc, block, dp, bias, nb;
+  float inv = 1.f / block;
   __device__ float operator()(int k, int n) const {
     if (k >= K || n >= Nc) return 0.f;
-    return to_f32(w[(int64_t)k * N + kept_src(n, block, dp, bias, nb)]);
+    return to_f32(
+        w[(int64_t)k * N + kept_src_fast(n, inv, block, dp, bias, nb)]);
   }
 };
 
@@ -63,9 +80,10 @@ template <typename T> struct KeptColsB {
 template <typename T> struct KeptRowsB {
   const T* w;
   int Kc, N, block, dp, bias, nb;
+  float inv = 1.f / block;
   __device__ float operator()(int k, int n) const {
     if (k >= Kc || n >= N) return 0.f;
-    return to_f32(w[kept_src(k, block, dp, bias, nb) * N + n]);
+    return to_f32(w[kept_src_fast(k, inv, block, dp, bias, nb) * N + n]);
   }
 };
 
@@ -73,7 +91,18 @@ template <typename T> struct KeptRowsB {
 // outputs (rows ty*TM.., columns tx*4..).  The next stage's operands are
 // fetched into registers while the current stage is multiplied.  Ends with a
 // barrier, so the caller may reuse As/Bs.
-template <int BM, class LA, class LB>
+//
+// A_KFAST / B_KFAST say which index of each operand is contiguous in memory:
+// the contraction index (true) or the tile's row / column index (false).
+// Neighbouring threads fetch neighbouring addresses either way, and the
+// tile is transposed on its way into shared memory.  The defaults are the
+// forward products' layouts (row-major activation, weight read by columns).
+// A transposed store puts a warp's 32 consecutive k of one row into one
+// shared-memory column, all in one bank; the column index is XOR-swizzled
+// with k (swz) so those stores hit 32 banks, and the reads apply the same
+// swizzle.
+template <int BM, bool A_KFAST = true, bool B_KFAST = false, class LA,
+          class LB>
 __device__ void tile_product(const LA& la, const LB& lb, int m0, int n0,
                              int k0, int k1, float (*As)[BM],
                              float (*Bs)[BN], float (&acc)[BM / 16][4]) {
@@ -82,16 +111,22 @@ __device__ void tile_product(const LA& la, const LB& lb, int m0, int n0,
   constexpr int B_PER = BK * BN / kThreads;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float ra[A_PER], rb[B_PER];
+  // shared-memory column of (k, column c) in a tile `width` wide
+  auto swz = [](bool on, int width, int k, int c) {
+    return on ? c ^ (k & ((width < 32 ? width : 32) - 1)) : c;
+  };
 
   auto fetch = [&](int kb) {
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * kThreads, m = e / BK, k = e % BK;
+      const int e = tid + i * kThreads;
+      const int m = A_KFAST ? e / BK : e % BM, k = A_KFAST ? e % BK : e / BM;
       ra[i] = (kb + k < k1) ? la(m0 + m, kb + k) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * kThreads, k = e / BN, n = e % BN;
+      const int e = tid + i * kThreads;
+      const int k = B_KFAST ? e % BK : e / BN, n = B_KFAST ? e / BK : e % BN;
       rb[i] = (kb + k < k1) ? lb(kb + k, n0 + n) : 0.f;
     }
   };
@@ -102,12 +137,14 @@ __device__ void tile_product(const LA& la, const LB& lb, int m0, int n0,
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const int e = tid + i * kThreads;
-      As[e % BK][e / BK] = ra[i];
+      if (A_KFAST) As[e % BK][swz(true, BM, e % BK, e / BK)] = ra[i];
+      else As[e / BM][e % BM] = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int e = tid + i * kThreads;
-      Bs[e / BN][e % BN] = rb[i];
+      if (B_KFAST) Bs[e % BK][swz(true, BN, e % BK, e / BK)] = rb[i];
+      else Bs[e / BN][e % BN] = rb[i];
     }
     __syncthreads();
     if (kb + BK < k1) fetch(kb + BK);
@@ -115,9 +152,11 @@ __device__ void tile_product(const LA& la, const LB& lb, int m0, int n0,
     for (int k = 0; k < BK; ++k) {
       float a[TM], b[4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty * TM + i];
+      for (int i = 0; i < TM; ++i)
+        a[i] = As[k][swz(A_KFAST, BM, k, ty * TM + i)];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
+      for (int j = 0; j < 4; ++j)
+        b[j] = Bs[k][swz(B_KFAST, BN, k, tx * 4 + j)];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll

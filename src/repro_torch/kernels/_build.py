@@ -34,6 +34,11 @@ SIGNATURES = {
     "fused_ffn": {
         "fused_ffn_fwd": [_P] * 6 + [_I] * 11 + [_P],
     },
+    "rdp_matmul_bwd": {
+        name: [_P] * 4 + [_I] * 9 + [_F, _P]
+        for name in ("rdp_cols_dgrad", "rdp_cols_wgrad", "rdp_rows_dgrad",
+                     "rdp_rows_wgrad")
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,11 @@ d_model 1536).  At M <= 16 a GEMV-shaped variant streams the weight rows
 of one chunk of 32·V kept hidden units per CTA.
 
 A CUDA tensor launches the kernel (and adds one to ``FUSED_FFN.launches``)
-or raises; a CPU tensor takes the plain version.  Forward only.
+or raises; a CPU tensor takes the plain version.  ``FusedFFN`` is its
+autograd rule (the twin of ``fused_ffn_gated_vjp`` / ``fused_ffn_plain_vjp``
+and ``_bwd_common``, src/repro/kernels/fused_ffn.py:145-252): the backward
+rematerializes the compact hidden activation with ``rdp_matmul_cols`` and
+runs the four backward kernels of ``rdp_matmul_bwd``.
 """
 from __future__ import annotations
 
@@ -21,8 +25,11 @@ import torch.nn.functional as F
 
 from ..core import patterns as P
 from . import _build
-from .rdp_matmul import (BN, DTYPES, WARPS, bm_for, check_args, skinny_rows,
-                         vec_for)
+from .autodiff import scatter_col_blocks, scatter_row_blocks
+from .rdp_matmul import (BN, DTYPES, WARPS, _check_pattern, bm_for,
+                         check_args, rdp_matmul_cols, skinny_rows, vec_for)
+from .rdp_matmul_bwd import (rdp_cols_dgrad, rdp_cols_wgrad, rdp_rows_dgrad,
+                             rdp_rows_wgrad)
 
 FUSED_FFN = _build.Kernel("fused_ffn_fwd", "src/repro_torch/csrc/fused_ffn.cu",
                           "src/repro/kernels/fused_ffn.py:93")
@@ -64,12 +71,7 @@ def fused_ffn_fwd(x2, w_up, w_gate, w_down, bias: int, *, dp: int,
                                  and w_gate.shape != w_up.shape):
         raise ValueError(f"fused_ffn_fwd: shapes x {x2.shape}, w_up "
                          f"{w_up.shape}, w_down {w_down.shape}")
-    if block < 1 or n % block or (n // block) % dp:
-        raise ValueError(f"fused_ffn_fwd: d_ff {n} must split into blocks "
-                         f"of {block} whose count divides by dp={dp}")
-    if not 0 <= bias < n // block:
-        raise ValueError(f"fused_ffn_fwd: bias {bias} outside "
-                         f"[0, {n // block})")
+    _check_pattern("fused_ffn_fwd", n, dp, bias, block)
     if x2.device.type == "cpu" and w_up.device.type == "cpu":
         return fused_ffn_plain(x2, w_up, w_gate, w_down, bias, dp=dp,
                                block=block, act=act)
@@ -99,3 +101,75 @@ def fused_ffn_fwd(x2, w_up, w_gate, w_down, bias: int, *, dp: int,
     _build.check(err, FUSED_FFN.name)
     FUSED_FFN.launches += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# autograd rule (gated and ungated in one Function: ``w_gate`` may be None)
+# --------------------------------------------------------------------------
+
+def _bwd_common(x2, w_up, w_gate, w_down, bias, dy, *, dp, block, act):
+    """Compact backward of the fused FFN: rematerialize u (and g) with
+    kernel ``rdp_matmul_cols``, then the down projection's adjoints, the
+    activation's, and the up (and gate) projections', in the reference's
+    order and with its cast of ``act(u)·g·dp`` to ``x2.dtype``."""
+    kw = dict(dp=dp, block=block)
+    u = rdp_matmul_cols(x2, w_up, bias, scale=False, **kw)
+    g = (rdp_matmul_cols(x2, w_gate, bias, scale=False, **kw)
+         if w_gate is not None else None)
+    with torch.enable_grad():            # the activation's small graph
+        leaves = [u.requires_grad_()] + ([g.requires_grad_()]
+                                         if g is not None else [])
+        h = act(u) * g * dp if g is not None else act(u) * dp
+        h = h.to(x2.dtype)
+    # down-projection adjoints (compact cotangent dh, kept-row wgrad)
+    dh = rdp_rows_dgrad(dy, w_down, bias, scale=False, **kw)
+    dwd = scatter_row_blocks(
+        rdp_rows_wgrad(h.detach(), dy, scale=False, **kw),
+        w_down.shape[0], dp, bias, block=block)
+    # activation (+gate, +×dp) adjoint
+    grads = torch.autograd.grad(h, leaves, dh)
+    du = grads[0].contiguous()
+    # up- (and gate-) projection adjoints
+    dx = rdp_cols_dgrad(du, w_up, bias, scale=False, **kw)
+    dwu = scatter_col_blocks(rdp_cols_wgrad(x2, du, scale=False, **kw),
+                             w_up.shape[1], dp, bias, block=block)
+    dwg = None
+    if g is not None:
+        dg = grads[1].contiguous()
+        dx = dx + rdp_cols_dgrad(dg, w_gate, bias, scale=False, **kw)
+        dwg = scatter_col_blocks(rdp_cols_wgrad(x2, dg, scale=False, **kw),
+                                 w_gate.shape[1], dp, bias,
+                                 block=block).to(w_gate.dtype)
+    return (dx.to(x2.dtype), dwu.to(w_up.dtype), dwg,
+            dwd.to(w_down.dtype))
+
+
+class FusedFFN(torch.autograd.Function):
+    """``fused_ffn_fwd`` with the compact backward of ``_bwd_common``."""
+
+    @staticmethod
+    def forward(ctx, x2, w_up, w_gate, w_down, bias: int, dp: int,
+                block: int, act):
+        """Kernel ``fused_ffn_fwd``; keeps its inputs for the backward."""
+        ctx.save_for_backward(x2, w_up, w_gate, w_down)
+        ctx.pattern = (bias, dp, block, act)
+        return fused_ffn_fwd(x2, w_up, w_gate, w_down, bias, dp=dp,
+                             block=block, act=act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        """(dx, dWu, dWg, dWd, None...) from ``_bwd_common``."""
+        x2, w_up, w_gate, w_down = ctx.saved_tensors
+        bias, dp, block, act = ctx.pattern
+        dx, dwu, dwg, dwd = _bwd_common(x2, w_up, w_gate, w_down, bias,
+                                        dy.contiguous(), dp=dp, block=block,
+                                        act=act)
+        return dx, dwu, dwg, dwd, None, None, None, None
+
+
+def fused_ffn_vjp(x2, w_up, w_gate, w_down, bias: int, dp: int, block: int,
+                  act=F.silu):
+    """Differentiable fused (gated if ``w_gate`` is given) compact FFN on
+    2-D ``x2``, ``dp > 1``."""
+    return FusedFFN.apply(x2.contiguous(), w_up, w_gate, w_down, int(bias),
+                          dp, block, act)

@@ -5,13 +5,17 @@ projections unscaled (each cast to the activation dtype), then
 ``act(h) * g``, then ×dp, then the unscaled down projection.  ``dp == 1``
 is a plain dense product.  Each wrapper launches its CUDA kernel on CUDA
 tensors and takes the kernel's plain version on CPU tensors.
+
+Every op is differentiable on both devices: the compact products go
+through the autograd Functions of ``autodiff`` and ``fused_ffn``, whose
+backward runs the backward kernels (their plain versions on CPU tensors).
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-from .fused_ffn import fused_ffn_fwd
-from .rdp_matmul import rdp_matmul_cols, rdp_matmul_rows
+from .autodiff import rdp_matmul_cols_vjp, rdp_matmul_rows_vjp
+from .fused_ffn import fused_ffn_vjp
 
 
 def rdp_up(a, w, bias: int, *, dp: int, block: int, scale: bool = True):
@@ -19,8 +23,8 @@ def rdp_up(a, w, bias: int, *, dp: int, block: int, scale: bool = True):
     if dp == 1:
         return a @ w
     lead = a.shape[:-1]
-    out = rdp_matmul_cols(a.reshape(-1, a.shape[-1]), w, bias, dp=dp,
-                          block=block, scale=scale)
+    out = rdp_matmul_cols_vjp(a.reshape(-1, a.shape[-1]), w, bias, dp,
+                              block, scale)
     return out.reshape(*lead, -1)
 
 
@@ -29,8 +33,8 @@ def rdp_down(a_compact, w, bias: int, *, dp: int, block: int):
     if dp == 1:
         return a_compact @ w
     lead = a_compact.shape[:-1]
-    out = rdp_matmul_rows(a_compact.reshape(-1, a_compact.shape[-1]), w,
-                          bias, dp=dp, block=block)
+    out = rdp_matmul_rows_vjp(a_compact.reshape(-1, a_compact.shape[-1]),
+                              w, bias, dp, block)
     return out.reshape(*lead, -1)
 
 
@@ -60,6 +64,5 @@ def fused_ffn(x, w_up, w_down, bias: int, *, dp: int, act=F.relu,
             h = h * (x2 @ w_gate)
         out = h.to(x2.dtype) @ w_down
     else:
-        out = fused_ffn_fwd(x2, w_up, w_gate, w_down, bias, dp=dp,
-                            block=block, act=act)
+        out = fused_ffn_vjp(x2, w_up, w_gate, w_down, bias, dp, block, act)
     return out.reshape(*lead, -1)

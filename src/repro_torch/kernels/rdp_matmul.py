@@ -17,9 +17,10 @@ the contraction across CTAs when the output alone would leave the card
 idle.
 
 A CUDA tensor launches the kernel (and adds one to its ``launches``) or
-raises; a CPU tensor takes the plain version.  Forward only: the wrappers
-refuse tensors that require grad (the backward kernels come with the
-training slice).
+raises; a CPU tensor takes the plain version.  The wrappers have no autograd
+rule: ``kernels.autodiff`` pairs each with its backward kernels
+(``rdp_matmul_bwd``), and a direct call with grad mode on and an operand
+that requires grad raises.
 """
 from __future__ import annotations
 
@@ -74,7 +75,10 @@ def split_k(kdim: int, out_tiles: int,
 
 
 def check_args(name: str, tensors, dtype) -> None:
-    """Shared wrapper checks: device, dtype, contiguity, no autograd."""
+    """Shared wrapper checks: device, dtype, contiguity, and no operand
+    that requires grad while grad mode is on — a direct call there would
+    drop the gradient silently.  The autograd Functions of ``autodiff`` and
+    ``fused_ffn`` call the wrappers with grad mode off."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be on the same "
@@ -84,13 +88,16 @@ def check_args(name: str, tensors, dtype) -> None:
                             f"{list(DTYPES)}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.requires_grad:
-            raise RuntimeError(f"{name}: forward-only kernel called on a "
-                               f"tensor that requires grad (serving runs "
-                               f"under torch.inference_mode())")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{name}: called with grad mode on and an "
+                               f"operand that requires grad; the kernel "
+                               f"has no autograd rule of its own (go "
+                               f"through kernels.ops, or torch.no_grad())")
 
 
 def _check_pattern(name, dim, dp, bias, block):
+    if dim >= 1 << 20:     # the kernels' kept_src is exact below 2^20 units
+        raise ValueError(f"{name}: pattern dim {dim} >= 2^20")
     if block < 1 or dim % block or (dim // block) % dp:
         raise ValueError(f"{name}: dim {dim} must split into blocks of "
                          f"{block} whose count divides by dp={dp}")

@@ -1,4 +1,4 @@
-"""Dense decoder-only LM: config, init, train-path forward.
+"""Dense decoder-only LM: config, init, train-path forward and loss.
 
 Twin of ``repro.models.transformer`` for the dense family.  Parameters are a
 plain dict; the JAX package's scanned ``params["stacks"][0]`` becomes the
@@ -91,10 +91,9 @@ def _run_dense(cfg, lp, x, pat):
     return x + L.ffn_block(lp["ffn"], h, _ffn_pat(cfg, pat))
 
 
-@torch.inference_mode()
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, pat=None):
-    """Train-path forward (no autograd yet).  tokens: [B, S].
-    Returns (logits [B, S, V] f32, aux_loss)."""
+    """Train-path forward, differentiable on every backend.  tokens:
+    [B, S].  Returns (logits [B, S, V] f32, aux_loss)."""
     pat = plan_mod.as_bound(pat)
     x = L.embed_tokens(params["embed"], tokens)
     for lp in params["layers"]:
@@ -102,3 +101,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, pat=None):
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x)
     return logits, torch.zeros((), device=logits.device)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: dict, pat=None):
+    """Masked mean next-token NLL over ``labels >= 0`` plus 0.01·aux.
+
+    batch: {"tokens", "labels"} int64 [B, S].  Returns (loss, {"ce",
+    "aux"}), as ``repro.models.transformer.lm_loss`` (dense path: no MTP,
+    no vision tokens)."""
+    logits, aux = forward(cfg, params, batch["tokens"], pat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits, -1)
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

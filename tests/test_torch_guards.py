@@ -35,6 +35,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch, repro_torch.bridge, repro_torch.configs\n"
             "import repro_torch.core, repro_torch.kernels, repro_torch.obs\n"
             "import repro_torch.models, repro_torch.serve\n"
+            "import repro_torch.data, repro_torch.optim, repro_torch.train\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in "
             "sys.modules if sys.modules[m] is not None)\n"
             "print('ok')\n")
