@@ -10,9 +10,10 @@ Phases, each of which fails the run (exit code 1) on any error:
 1. build  — compile every CUDA kernel of the serving path from
    ``src/repro_torch/csrc`` (one nvcc per source, all started together);
 2. kernels — hold each kernel against its plain PyTorch version on the card
-   at the serving path's shapes (qwen2-1.5b: d_model 1536, d_ff 8960, block
-   70; dp 2/4/8, every bias, M 1/2/3/8/16/256, bf16 and f32), and time kernel,
-   plain version and a library matmul on pre-gathered compact weights;
+   at the serving and training paths' shapes (qwen2-1.5b: d_model 1536,
+   d_ff 8960, block 70; dp 2/4/8, every bias, M 1/2/3/8/16/100/256 and the
+   train step's 2048, bf16 and f32), and time kernel, plain version and a
+   library matmul on pre-gathered compact weights;
 3. serve  — qwen2-1.5b at full width (28 layers, bf16, random weights from a
    seed) through ``Scheduler`` + ``Server`` on the "cuda" backend (shared
    and per-member prefill) and the "fused" backend, with launch counts reset
@@ -121,6 +122,12 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 # phase 2: kernels against their plain versions
 # ==========================================================================
 
+# decode widths, prefill chunks, a ragged partial tile, and a train step's
+# 4 x 512 tokens (kernels 1-3 run there in the forward and, kernel 1, in the
+# fused backward's remat)
+FWD_M = (1, 2, 3, 8, 16, 100, 256, 2048)
+
+
 def kernel_phase(torch, K, shapes):
     """Correctness sweep + timings.  Returns (records, timing table)."""
     d_model, d_ff, block = shapes
@@ -140,7 +147,7 @@ def kernel_phase(torch, K, shapes):
               / d_model ** 0.5).to(dt)
         wd = (torch.randn(d_ff, d_model, generator=g, device=dev)
               / d_ff ** 0.5).to(dt)
-        for m in (1, 2, 3, 8, 16, 256):
+        for m in FWD_M:
             x = torch.randn(m, d_model, generator=g, device=dev).to(dt)
             for dp in (2, 4, 8):
                 ac = torch.randn(m, d_ff // dp, generator=g, device=dev
@@ -184,9 +191,9 @@ def kernel_phase(torch, K, shapes):
 
 
 def timing_table(torch, K, shapes, g):
-    """bf16 times at decode and prefill M, weights rotated through copies
-    that together exceed the 50 MB L2 (the decode path streams 28 layers
-    of weights, so it finds them cold)."""
+    """bf16 times at decode, prefill and train-step M, weights rotated
+    through copies that together exceed the 50 MB L2 (the decode path
+    streams 28 layers of weights, so it finds them cold)."""
     from repro_torch.core.patterns import kept_unit_indices
     d_model, d_ff, block = shapes
     dev, dt = "cuda", torch.bfloat16
@@ -203,7 +210,7 @@ def timing_table(torch, K, shapes, g):
         idx = kept_unit_indices(d_ff, dp, b, block, device=dev)
         compact = [(wu[:, idx].contiguous(), wg[:, idx].contiguous(),
                     wd[idx].contiguous()) for wu, wg, wd in sets]
-        for m in (1, 8, 16, 256):
+        for m in (1, 8, 16, 256, 2048):
             x = torch.randn(m, d_model, generator=g, device=dev).to(dt)
             ac = torch.randn(m, d_ff // dp, generator=g, device=dev).to(dt)
             nc = d_ff // dp
@@ -236,16 +243,18 @@ def timing_table(torch, K, shapes, g):
                     2 * (m * d_model + 3 * d_model * nc + m * d_model),
                     6 * m * d_model * nc),
             }
+            # a train step's kernels take milliseconds: fewer calls do
+            it = (dict(iters=5, warmup=2, replays=3) if m > 256 else {})
             for name, (kern, plain, lib, nbytes, flops) in cases.items():
                 bnd, by = bound_ms(nbytes, flops, "bfloat16")
                 rec = {"name": name, "dp": dp, "M": m, "dtype": "bfloat16",
-                       "ms": cuda_ms(torch, kern),
-                       "plain_ms": cuda_ms(torch, plain),
-                       "library_ms": (cuda_ms(torch, lib) if lib is not None
-                                      else None),
+                       "ms": cuda_ms(torch, kern, **it),
+                       "plain_ms": cuda_ms(torch, plain, **it),
+                       "library_ms": (cuda_ms(torch, lib, **it)
+                                      if lib is not None else None),
                        "bound_ms": bnd, "bound_by": by}
                 rows.append(rec)
-                log(f"[time] {name:16s} dp={dp} M={m:3d}: kernel "
+                log(f"[time] {name:16s} dp={dp} M={m:4d}: kernel "
                     f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                     f"library {rec['library_ms'] if lib else 'n/a'} ms, "
                     f"bound {bnd:.4f} ms ({by})")

@@ -2,7 +2,8 @@
 (seed, step), so a restarted run replays the stream bit-exactly.
 
 The port's own copy of ``repro.data.pipeline.SyntheticLMData`` (pure numpy;
-the port imports nothing of the JAX package): the same draws, bit for bit.
+the port imports nothing of the JAX package): the same draws, bit for bit,
+as the reference's single-host stream of plain tokens.
 """
 from __future__ import annotations
 
@@ -19,32 +20,14 @@ class SyntheticLMData:
     seq_len: int
     global_batch: int
     seed: int = 0
-    n_codebooks: int = 0
-    vision_tokens: int = 0
-    vision_dim: int = 0
-    host_index: int = 0
-    host_count: int = 1
-
-    @property
-    def host_batch(self) -> int:
-        """Rows of the global batch this host draws."""
-        assert self.global_batch % self.host_count == 0
-        return self.global_batch // self.host_count
 
     def batch(self, step: int) -> dict:
-        """{"tokens", "labels"} int32 numpy arrays [B, seq_len]."""
+        """{"tokens", "labels"} int32 numpy arrays [global_batch, seq_len]."""
+        # the reference seeds (seed, step, host_index); one host is index 0
         rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, int(step), self.host_index]))
-        B = self.host_batch
-        shape = ((B, self.n_codebooks, self.seq_len + 1) if self.n_codebooks
-                 else (B, self.seq_len + 1))
+            np.random.SeedSequence([self.seed, int(step), 0]))
         # Zipf-ish: inverse-CDF over a power-law gives realistic skew
-        u = rng.random(shape)
+        u = rng.random((self.global_batch, self.seq_len + 1))
         toks = np.minimum((self.vocab * u ** 2.5).astype(np.int32),
                           self.vocab - 1)
-        out = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
-        if self.vision_tokens:
-            out["vision_embeds"] = rng.standard_normal(
-                (B, self.vision_tokens, self.vision_dim),
-                dtype=np.float32) * 0.02
-        return out
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -54,14 +54,11 @@ class AdamW:
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
-    state_dtype: str = "float32"    # "bfloat16" for the largest models
 
     def init(self, params) -> dict:
         """Zero moments beside every parameter and a step count of 0."""
-        dt = torch.bfloat16 if self.state_dtype == "bfloat16" \
-            else torch.float32
-        zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
-                                      device=p.device)
+        zeros = lambda p: torch.zeros(  # noqa: E731
+            p.shape, dtype=torch.float32, device=p.device)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": 0}
 

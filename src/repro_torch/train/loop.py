@@ -88,7 +88,6 @@ class TrainerConfig:
     steps: int = 100
     base_lr: float = 3e-4
     warmup: int = 10
-    ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
     clip_norm: float = 1.0
     microbatches: int = 1
