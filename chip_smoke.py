@@ -32,6 +32,16 @@ Phases, each of which fails the run (exit code 1) on any error:
    after each; eager train-step times per (backend, dp) with each step's
    device time per kernel class from torch.profiler.
 
+Tile-based dropout (the "tdp" family, kernels 8-10) runs qwen2-1.5b at
+``pattern_nb`` 12 (tile 1536 / 12 = 128; 12 x 70 tiles of ``w_up``), whose
+plan uses dp 2/3/4/6: phase 2 holds kernels 8-10 against their plain
+versions (tile 128 and 64, every bias, f32 and bf16) and times them at M 8
+and 2048 beside a ``torch.bmm`` over the dp residue classes; phase 3 serves
+an E = 8 ensemble on "cuda" (first-token logits against "slice", f32
+held, bf16 reported) and adds TDP decode rows; phase 4 holds full-width f32
+gradients against "slice" at dp 2/3/4/6 (dropped ``w_up`` tiles exactly
+zero), trains 8 bf16 steps with exact launch counts and adds TDP step rows.
+
 Prints per-phase seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -40,6 +50,7 @@ without a CUDA device or without the repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -64,6 +75,11 @@ LOGIT_TOL = 5e-2
 # the same in float32: only summation orders differ (1e-7 relative per
 # product), compounded over 28 layers — 1e-3 of the logit scale.
 F32_LOGIT_TOL = 1e-3
+# TDP on qwen2-1.5b: the family's tile is d_model / pattern_nb, and at the
+# configured pattern_nb 128 (tile 12) it does not divide d_ff 8960; at 12
+# the tile is 128 and the plan's periods are the divisors of 12 up to 8
+TDP_NB = 12
+TDP_DPS = (2, 3, 4, 6)
 
 
 class SmokeFailure(RuntimeError):
@@ -261,9 +277,195 @@ def timing_table(torch, K, shapes, g):
     return rows
 
 
+def tdp_kernels(K):
+    return [K.TDP_MATMUL, K.TDP_DGRAD, K.TDP_WGRAD]
+
+
+def tdp_pair(K, kern, a, w, dc, b, **kw):
+    """(kernel output, plain output) of one TDP kernel on these operands."""
+    if kern is K.TDP_MATMUL:
+        return K.tdp_matmul(a, w, b, **kw), K.tdp_matmul_plain(a, w, b, **kw)
+    if kern is K.TDP_DGRAD:
+        return K.tdp_dgrad(dc, w, b, **kw), K.tdp_dgrad_plain(dc, w, b, **kw)
+    return K.tdp_wgrad(a, dc, b, **kw), K.tdp_wgrad_plain(a, dc, b, **kw)
+
+
+def tdp_kernel_phase(torch, K, d_model, d_ff):
+    """Kernels 8-10 against their plain versions (same tolerances as the
+    RDP kernels: each output sums at most 8960 / dp products, or 2048
+    tokens), then timed.  Returns (worst abs, worst rel, timing rows,
+    number of checks)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    names = [k.name for k in tdp_kernels(K)]
+    worst, worst_rel = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    # (kernel, K, N, tile, M values, periods): w_up of qwen2-1.5b at tile
+    # 128 (12 x 70 tiles; dgrad needs dp | 70), a square K = N = d_model
+    # for the dgrad at every period (12 x 12 tiles), and tile 64 (24 x 140)
+    sweep = [(K.TDP_MATMUL, d_model, d_ff, 128, (1, 8, 16, 100, 2048),
+              TDP_DPS),
+             (K.TDP_WGRAD, d_model, d_ff, 128, (1, 100, 2048), TDP_DPS),
+             (K.TDP_DGRAD, d_model, d_ff, 128, (1, 100, 2048), (2,)),
+             (K.TDP_DGRAD, d_model, d_model, 128, (1, 100, 2048), TDP_DPS),
+             (K.TDP_MATMUL, d_model, d_ff, 64, (100,), TDP_DPS),
+             (K.TDP_WGRAD, d_model, d_ff, 64, (100,), TDP_DPS),
+             (K.TDP_DGRAD, d_model, d_ff, 64, (100,), (2, 4))]
+    checks = 0
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        tol = KERNEL_TOL[dname]
+        weights = {}
+        for kern, kd, n, tile, ms, dps in sweep:
+            if (kd, n) not in weights:
+                weights[kd, n] = (rn(kd, n) / kd ** 0.5).to(dt)
+            w = weights[kd, n]
+            for m in ms:
+                a, dc = rn(m, kd).to(dt), rn(m, n).to(dt)
+                for dp in dps:
+                    for b in range(dp):
+                        got, ref = tdp_pair(K, kern, a, w, dc, b, dp=dp,
+                                            tile=tile)
+                        torch.cuda.synchronize()
+                        ref = ref.float()
+                        abs_err = float((got.float() - ref).abs().max())
+                        err = abs_err / max(float(ref.abs().max()), 1e-30)
+                        require(bool(torch.isfinite(got).all()),
+                                f"{kern.name}: non-finite output")
+                        require(err <= tol, f"{kern.name} {dname} K={kd} "
+                                f"N={n} tile={tile} M={m} dp={dp} b={b}: "
+                                f"rel err {err:.3e} > {tol}")
+                        if dname == "bfloat16":
+                            worst[kern.name] = max(worst[kern.name], abs_err)
+                            worst_rel[kern.name] = max(worst_rel[kern.name],
+                                                       err)
+                        checks += 1
+    log(f"[kernels] {checks} TDP kernel-vs-plain checks passed (f32 tol "
+        f"{KERNEL_TOL['float32']}, bf16 tol {KERNEL_TOL['bfloat16']} of "
+        f"max|ref|); bf16 worst max-abs {worst}, relative {worst_rel}")
+    return worst, worst_rel, tdp_timing(torch, K, d_model, d_ff, g), checks
+
+
+def residue_units(torch, dim: int, tile: int, dp: int, c: int, device):
+    """Unit indices of the tiles ``c, c + dp, c + 2·dp, ...`` of ``dim``."""
+    t = torch.arange(c, dim // tile, dp, device=device)
+    return (t[:, None] * tile + torch.arange(tile, device=device)).reshape(-1)
+
+
+def tdp_timing(torch, K, d_model, d_ff, g, dp=2, b=1, tile=128):
+    """bf16 times of kernels 8-10 at M 8 (a decode width, weights rotated
+    through copies that exceed the 50 MB L2) and M 2048 (a train step), dp
+    2: kernel, plain version, and a library yardstick.  Tile-column class q
+    (j = q mod dp) keeps row-tile class (b - q) mod dp, so TDP is dp dense
+    products: one ``torch.bmm`` over pre-gathered contiguous operands, A
+    [dp, M, K/dp] @ W [dp, K/dp, N/dp] (the forward), dC [dp, M, N/dp] @
+    Wᵀ [dp, N/dp, K/dp] (dgrad) and Aᵀ [dp, K/dp, M] @ dC (wgrad).  Every
+    function reads A or dC whole, the kept W and writes one output:
+    2·(M·K + M·N + K·N/dp) bytes and 2·M·K·N/dp operations."""
+    dev, dt = "cuda", torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    cols = [residue_units(torch, d_ff, tile, dp, q, dev) for q in range(dp)]
+    rows = [residue_units(torch, d_model, tile, dp, (b - q) % dp, dev)
+            for q in range(dp)]
+    n_rot = 4                        # 4 x 27.5 MB of w_up
+    ws = [(rn(d_model, d_ff) / d_model ** 0.5).to(dt) for _ in range(n_rot)]
+    wg = [torch.stack([w[rows[q]][:, cols[q]] for q in range(dp)])
+          for w in ws]
+    wgt = [x.transpose(1, 2).contiguous() for x in wg]
+    out = []
+    for m in (8, 2048):
+        a, dc = rn(m, d_model).to(dt), rn(m, d_ff).to(dt)
+        ag = torch.stack([a[:, rows[q]] for q in range(dp)])
+        agt = ag.transpose(1, 2).contiguous()
+        dcg = torch.stack([dc[:, cols[q]] for q in range(dp)])
+        kw = dict(dp=dp, tile=tile)
+        w = lambda i: ws[i % n_rot]                      # noqa: E731
+        cases = {
+            K.TDP_MATMUL.name: (
+                lambda i: K.tdp_matmul(a, w(i), b, **kw),
+                lambda i: K.tdp_matmul_plain(a, w(i), b, **kw),
+                lambda i: torch.bmm(ag, wg[i % n_rot])),
+            K.TDP_DGRAD.name: (
+                lambda i: K.tdp_dgrad(dc, w(i), b, **kw),
+                lambda i: K.tdp_dgrad_plain(dc, w(i), b, **kw),
+                lambda i: torch.bmm(dcg, wgt[i % n_rot])),
+            K.TDP_WGRAD.name: (
+                lambda i: K.tdp_wgrad(a, dc, b, **kw),
+                lambda i: K.tdp_wgrad_plain(a, dc, b, **kw),
+                lambda i: torch.bmm(agt, dcg)),
+        }
+        nbytes = 2 * (m * d_model + m * d_ff + d_model * d_ff / dp)
+        flops = 2 * m * d_model * d_ff / dp
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        it = dict(iters=5, warmup=2, replays=3) if m > 256 else {}
+        for name, (kern, plain, lib) in cases.items():
+            rec = {"name": name, "dp": dp, "M": m, "dtype": "bfloat16",
+                   "ms": cuda_ms(torch, kern, **it),
+                   "plain_ms": cuda_ms(torch, plain, **it),
+                   "library_ms": cuda_ms(torch, lib, **it),
+                   "bound_ms": bnd, "bound_by": by}
+            out.append(rec)
+            log(f"[time] {name:16s} dp={dp} M={m:4d}: kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                f"library (bmm) {rec['library_ms']:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+    return out
+
+
 # ==========================================================================
 # phase 3: serve qwen2-1.5b at full width
 # ==========================================================================
+
+def make_requests(rt, prompt, which="both"):
+    """A dense request and an E = 8 ensemble ("both"), or the ensemble."""
+    reqs = [rt.serve.Request(rid=0, prompt=prompt, max_new_tokens=SERVE_NEW,
+                             ensemble=1),
+            rt.serve.Request(rid=1, prompt=prompt, max_new_tokens=SERVE_NEW,
+                             ensemble=SERVE_E, seed=7)]
+    return reqs if which == "both" else reqs[1:]
+
+
+def serve_run(torch, rt, cfg, params, plan, prompt, backend, shared=True,
+              which="both"):
+    """Serve ``make_requests(which)`` through ``Scheduler`` + ``Server`` on
+    ``backend``; check every member's tokens and first logits.  Returns
+    (output, wall seconds)."""
+    import numpy as np
+    sched = rt.serve.Scheduler(cfg, params, capacity=16, max_len=128,
+                               plan=plan.with_backend(backend),
+                               shared_prefill=shared, device="cuda")
+    t = time.perf_counter()
+    out = rt.serve.Server(sched, clock=rt.serve.WallClock()).run(
+        make_requests(rt, prompt, which))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    reqs = make_requests(rt, prompt, which)
+    for r in reqs:
+        members = out["results"][r.rid]
+        require(len(members) == r.ensemble,
+                f"{backend}: request {r.rid} has {len(members)} members")
+        for m in members:
+            require(len(m["tokens"]) == SERVE_NEW,
+                    f"{backend}: member {m['member']} produced "
+                    f"{len(m['tokens'])} tokens, want {SERVE_NEW}")
+            require(all(0 <= t < cfg.vocab for t in m["tokens"]),
+                    f"{backend}: token out of vocabulary")
+            fl = m["first_logits"]
+            require(fl is not None and fl.shape == (cfg.vocab,)
+                    and bool(np.isfinite(fl).all()),
+                    f"{backend}: first logits not finite [{cfg.vocab}]")
+    tel = out["telemetry"]
+    require(tel["tokens_generated"]
+            == SERVE_NEW * sum(r.ensemble for r in reqs),
+            f"{backend}: token count {tel['tokens_generated']}")
+    sched.obs.watchdog.assert_clean()
+    log(f"[serve] {plan.family} backend={backend} shared_prefill={shared}: "
+        f"{wall:.2f} s wall, buckets {sorted(tel['bucket_tokens'])}, "
+        f"prompt tokens {tel['prompt_tokens']}")
+    return out, wall
+
+
+SERVE_NEW, SERVE_E = 8, 8
+
 
 def serve_phase(torch, K, rt):
     cfg = rt.configs.get_config("qwen2_1_5b")
@@ -280,48 +482,10 @@ def serve_phase(torch, K, rt):
         f"buckets={len(plan.buckets())}")
     rng = __import__("numpy").random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab, 64).astype("int32")
-    S, NEW, E = 64, 8, 8
-
-    def requests(which):
-        reqs = [rt.serve.Request(rid=0, prompt=prompt, max_new_tokens=NEW,
-                                 ensemble=1),
-                rt.serve.Request(rid=1, prompt=prompt, max_new_tokens=NEW,
-                                 ensemble=E, seed=7)]
-        return reqs if which == "both" else reqs[1:]
 
     def run(backend, shared=True, which="both"):
-        sched = rt.serve.Scheduler(cfg, params, capacity=16, max_len=128,
-                                   plan=plan.with_backend(backend),
-                                   shared_prefill=shared, device="cuda")
-        t = time.perf_counter()
-        out = rt.serve.Server(sched, clock=rt.serve.WallClock()).run(
-            requests(which))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        reqs = requests(which)
-        for r in reqs:
-            members = out["results"][r.rid]
-            require(len(members) == r.ensemble,
-                    f"{backend}: request {r.rid} has {len(members)} members")
-            for m in members:
-                require(len(m["tokens"]) == NEW,
-                        f"{backend}: member {m['member']} produced "
-                        f"{len(m['tokens'])} tokens, want {NEW}")
-                require(all(0 <= t < cfg.vocab for t in m["tokens"]),
-                        f"{backend}: token out of vocabulary")
-                fl = m["first_logits"]
-                require(fl is not None and fl.shape == (cfg.vocab,)
-                        and bool(__import__("numpy").isfinite(fl).all()),
-                        f"{backend}: first logits not finite [{cfg.vocab}]")
-        tel = out["telemetry"]
-        require(tel["tokens_generated"]
-                == NEW * sum(r.ensemble for r in reqs),
-                f"{backend}: token count {tel['tokens_generated']}")
-        sched.obs.watchdog.assert_clean()
-        log(f"[serve] backend={backend} shared_prefill={shared}: "
-            f"{wall:.2f} s wall, buckets {sorted(tel['bucket_tokens'])}, "
-            f"prompt tokens {tel['prompt_tokens']}")
-        return out, wall
+        return serve_run(torch, rt, cfg, params, plan, prompt, backend,
+                         shared, which)
 
     # main path, cuda backend: shared prefill, then per-member prefill
     K.reset_launches()
@@ -349,18 +513,45 @@ def serve_phase(torch, K, rt):
     logit_errs = compare_first_logits(
         {"cuda": cuda_out, "fused": fused_out, "gather": gather_out},
         slice_out, LOGIT_TOL, "bf16")
-    logit_errs += f32_backend_check(torch, rt, cfg, plan, prompt)
-    steps = decode_step_table(torch, rt, cfg, params, plan)
-    return {"launches": launches, "wall_s": {"cuda_shared": w1,
-                                             "cuda_member": w2,
-                                             "fused_shared": w3},
+    # the TDP path: qwen2-1.5b at pattern_nb 12, the ensemble on cuda
+    tcfg = dataclasses.replace(cfg, pattern_nb=TDP_NB)
+    tplan = rt.core.build_plan("tdp", 0.5, nb=TDP_NB, dp_max=8,
+                               backend="cuda")
+    log(f"[serve] tdp plan K={[round(k, 4) for k in tplan.dist]} "
+        f"buckets={len(tplan.buckets())}")
+    K.reset_launches()
+    tdp_out, w4 = serve_run(torch, rt, tcfg, params, tplan, prompt, "cuda",
+                            which="ensemble")
+    tdp_launches = {k.name: k.launches for k in K.KERNELS}
+    log(f"[serve] launches on the tdp cuda-backend path: {tdp_launches}")
+    require(tdp_launches[K.TDP_MATMUL.name] > 0,
+            "the tdp cuda backend did not launch tdp_matmul")
+    require(all(n == 0 for k, n in tdp_launches.items()
+                if k != K.TDP_MATMUL.name),
+            "the tdp serving path launched another kernel")
+    tdp_slice, _ = serve_run(torch, rt, tcfg, params, tplan, prompt, "slice",
+                             which="ensemble")
+    logit_errs += compare_first_logits({"cuda": tdp_out}, tdp_slice, None,
+                                       "bf16 tdp")
+    logit_errs += f32_backend_check(torch, rt, [
+        ("f32", cfg, plan, ("cuda", "fused")),
+        ("f32 tdp", tcfg, tplan, ("cuda",))], prompt)
+    steps = decode_step_table(torch, rt, cfg, params, plan, "rdp",
+                              [("cuda", dp) for dp in (1, 2, 4, 8)]
+                              + [("fused", dp) for dp in (2, 4, 8)])
+    steps += decode_step_table(torch, rt, tcfg, params, tplan, "tdp",
+                               [("cuda", 2), ("cuda", 6)])
+    return {"launches": launches, "tdp_launches": tdp_launches,
+            "wall_s": {"cuda_shared": w1, "cuda_member": w2,
+                       "fused_shared": w3, "tdp_cuda_shared": w4},
             "logit_errs": logit_errs, "decode_steps": steps,
-            "plan_dist": list(plan.dist)}
+            "plan_dist": list(plan.dist), "tdp_plan_dist": list(tplan.dist)}
 
 
-def compare_first_logits(outs: dict, ref_out, tol: float, label: str):
+def compare_first_logits(outs: dict, ref_out, tol, label: str):
     """First-token logits of request 1's dp > 1 members, each backend in
-    ``outs`` against ``ref_out`` (the slice backend): max |Δ| / max|ref|."""
+    ``outs`` against ``ref_out`` (the slice backend): max |Δ| / max|ref|,
+    held to ``tol`` (reported only when it is None)."""
     import numpy as np
     ref = {m["member"]: m for m in ref_out["results"][1]}
     errs = []
@@ -378,97 +569,109 @@ def compare_first_logits(outs: dict, ref_out, tol: float, label: str):
                          "bucket": [r["dp"], r["bias"]], "backend": be,
                          "rel_err": err, "argmax_equal": bool(
                              got["first_logits"].argmax() == rl.argmax())})
-            require(err <= tol, f"{label} {be} member {got['member']} "
-                    f"bucket ({r['dp']},{r['bias']}): first-token logits "
-                    f"rel err {err:.3e} > {tol} vs slice")
+            require(tol is None or err <= tol, f"{label} {be} member "
+                    f"{got['member']} bucket ({r['dp']},{r['bias']}): "
+                    f"first-token logits rel err {err:.3e} > {tol} vs slice")
     require(errs, f"{label}: no dp > 1 member to compare")
     for be in outs:
         e = [x for x in errs if x["backend"] == be]
         log(f"[serve] {label} first-token logits, {be} vs slice ({len(e)} "
             f"dp>1 members): max rel err "
-            f"{max(x['rel_err'] for x in e):.3e} (tol {tol}), argmax equal "
+            f"{max(x['rel_err'] for x in e):.3e} "
+            f"({'reported' if tol is None else f'tol {tol}'}), argmax equal "
             f"{sum(x['argmax_equal'] for x in e)}/{len(e)}")
     return errs
 
 
-def f32_backend_check(torch, rt, cfg, plan, prompt):
-    """The same ensemble request at full width in float32 (TF32 off): the
-    backends differ only in summation order, so the cuda and fused paths
-    must agree with slice to F32_LOGIT_TOL."""
-    import dataclasses
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+def f32_backend_check(torch, rt, cases, prompt):
+    """The same ensemble request at full width in float32 (TF32 off), for
+    each (label, cfg, plan, backends) case: the backends differ from slice
+    only in summation order, so they must agree with it to F32_LOGIT_TOL.
+    The weights do not depend on the pattern blocking, so the cases share
+    one float32 copy."""
+    cfg32 = dataclasses.replace(cases[0][1], dtype="float32")
     params = rt.models.materialize(0, rt.models.init_lm(cfg32),
                                    device="cuda")
-    outs = {}
-    for backend in ("slice", "cuda", "fused"):
-        sched = rt.serve.Scheduler(cfg32, params, capacity=16, max_len=128,
-                                   plan=plan.with_backend(backend),
-                                   device="cuda")
-        outs[backend] = rt.serve.Server(sched).run([rt.serve.Request(
-            rid=1, prompt=prompt, max_new_tokens=2, ensemble=8, seed=7)])
-    ref = outs.pop("slice")
-    errs = compare_first_logits(outs, ref, F32_LOGIT_TOL, "f32")
+    errs = []
+    for label, cfg, plan, backends in cases:
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        outs = {}
+        for backend in ("slice",) + tuple(backends):
+            sched = rt.serve.Scheduler(c32, params, capacity=16,
+                                       max_len=128,
+                                       plan=plan.with_backend(backend),
+                                       device="cuda")
+            outs[backend] = rt.serve.Server(sched).run([rt.serve.Request(
+                rid=1, prompt=prompt, max_new_tokens=2, ensemble=SERVE_E,
+                seed=7)])
+        ref = outs.pop("slice")
+        errs += compare_first_logits(outs, ref, F32_LOGIT_TOL, label)
     del params
     torch.cuda.empty_cache()
     return errs
 
 
-def decode_step_table(torch, rt, cfg, params, plan):
-    """One decode step per (backend, dp, width) at position 64: host-clock
-    ms of the eager step (what the scheduler pays today) and device ms of
-    the same step replayed from a CUDA graph (the step without host launch
-    overhead), beside the FFN-weight-bytes bound (3·d·d_ff·2 B per layer,
-    all layers, over the HBM rate, divided by dp)."""
+def ffn_bytes_bound_ms(cfg, family: str, dp: int) -> float:
+    """Least time of a decode step's FFN weight reads over the HBM rate:
+    3·d·d_ff bf16 weights a layer, all layers; rdp reads 1/dp of all
+    three, tdp 1/dp of w_up and all of w_gate and w_down."""
     ffn_bytes = 3 * cfg.d_model * cfg.d_ff * 2 * cfg.n_layers
+    share = 1 / dp if family == "rdp" else (1 / dp + 2) / 3
+    return ffn_bytes * share / HBM_BYTES_PER_S * 1e3
+
+
+def decode_step_table(torch, rt, cfg, params, plan, family, configs):
+    """One decode step per (backend, dp) of ``configs`` and width at
+    position 64: host-clock ms of the eager step (what the scheduler pays
+    today) and device ms of the same step replayed from a CUDA graph (the
+    step without host launch overhead), beside the FFN-weight-bytes
+    bound."""
     rows = []
-    for backend in ("cuda", "fused"):
-        for dp in ((1, 2, 4, 8) if backend == "cuda" else (2, 4, 8)):
-            pat = (plan.with_backend(backend).bind(dp, 0) if dp > 1
-                   else rt.core.IDENTITY)
-            for width in (1, 8):
-                cache = rt.serve.init_cache(cfg, width, 128, device="cuda")
-                cache["pos"] = torch.full((width,), 64, dtype=torch.int64,
-                                          device="cuda")
-                tok = torch.zeros((width, 1), dtype=torch.int64,
-                                  device="cuda")
+    for backend, dp in configs:
+        pat = (plan.with_backend(backend).bind(dp, 0) if dp > 1
+               else rt.core.IDENTITY)
+        for width in (1, 8):
+            cache = rt.serve.init_cache(cfg, width, 128, device="cuda")
+            cache["pos"] = torch.full((width,), 64, dtype=torch.int64,
+                                      device="cuda")
+            tok = torch.zeros((width, 1), dtype=torch.int64, device="cuda")
 
-                def step(_i=0):
-                    rt.serve.decode_step_ragged(cfg, params, cache, tok,
-                                                pat=pat)
+            def step(_i=0):
+                rt.serve.decode_step_ragged(cfg, params, cache, tok, pat=pat)
 
-                for _ in range(2):
-                    step()
-                torch.cuda.synchronize()
-                n = 5
-                t = time.perf_counter()
-                for _ in range(n):
-                    step()
-                torch.cuda.synchronize()
-                host_ms = (time.perf_counter() - t) / n * 1e3
-                dev_ms = cuda_ms(torch, step, iters=2, warmup=1, replays=3)
-                bnd = ffn_bytes / dp / HBM_BYTES_PER_S * 1e3
-                rows.append({"backend": backend, "dp": dp, "width": width,
-                             "step_ms": host_ms, "graph_step_ms": dev_ms,
-                             "ffn_bytes_bound_ms": bnd,
-                             "kernels": profile_step(torch, step, host_ms)})
-                log(f"[decode] {backend:5s} dp={dp} width={width}: eager "
-                    f"{host_ms:.2f} ms/step, graph-replayed {dev_ms:.3f} "
-                    f"ms/step, FFN-weight bound {bnd:.3f} ms")
-                log_profile(rows[-1]["kernels"])
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            n = 5
+            t = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t) / n * 1e3
+            dev_ms = cuda_ms(torch, step, iters=2, warmup=1, replays=3)
+            bnd = ffn_bytes_bound_ms(cfg, family, dp)
+            rows.append({"family": family, "backend": backend, "dp": dp,
+                         "width": width, "step_ms": host_ms,
+                         "graph_step_ms": dev_ms, "ffn_bytes_bound_ms": bnd,
+                         "kernels": profile_step(torch, step, host_ms)})
+            log(f"[decode] {family} {backend:5s} dp={dp} width={width}: "
+                f"eager {host_ms:.2f} ms/step, graph-replayed {dev_ms:.3f} "
+                f"ms/step, FFN-weight bound {bnd:.3f} ms")
+            log_profile(rows[-1]["kernels"])
     return rows
 
 
-# kernel names in the trace: the port's own (namespace rdp, csrc/), the
+# kernel names in the trace: the port's own (namespaces rdp and tdp, csrc/), the
 # library's matrix products (attention projections, dense FFN, unembedding;
 # cuBLAS names them gemm/xmma/cutlass or nvjet), and copies (cache writes,
 # casts, contiguous copies)
-PORT_KERNEL = "rdp::"
+PORT_KERNELS = ("rdp::", "tdp::")
 LIBRARY_GEMM = ("gemm", "gemv", "cutlass", "xmma", "splitk", "nvjet")
 
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if PORT_KERNEL in name:
+    if any(p in name for p in PORT_KERNELS):
         return "port_ffn"
     if any(w in low for w in LIBRARY_GEMM):
         return "library_gemm"
@@ -663,14 +866,60 @@ def _dropped_zero(torch, params, grads, leaves, d_ff, dp, b, block):
     return True
 
 
+def tdp_grad_parity(torch, rt, cfg, params, leaves, batch):
+    """f32 lm_loss gradients under the TDP plan (pattern_nb 12) on "cuda"
+    against "slice" at dp 2 (kernel 9) and 3/4/6 (the mask-multiply
+    dgrad), held to F32_GRAD_TOL of each leaf's max|g|; in every layer the
+    nonzero tiles of the w_up gradient are exactly the kept tiles, and the
+    w_gate / w_down gradients are dense (no hidden unit without one)."""
+    tcfg = dataclasses.replace(cfg, pattern_nb=TDP_NB)
+    tile = cfg.d_model // TDP_NB
+    tr, tc = cfg.d_model // tile, cfg.d_ff // tile
+    plan = rt.core.build_plan("tdp", 0.5, nb=TDP_NB, dp_max=8)
+    out = []
+    for dp in TDP_DPS:
+        b = dp - 1
+        gs = {}
+        for backend in ("slice", "cuda"):
+            loss, _ = rt.models.lm_loss(tcfg, params, batch,
+                                        plan.with_backend(backend).bind(dp, b))
+            gs[backend] = torch.autograd.grad(loss, leaves)
+        rel = max(float((x - r).abs().max()) / max(float(r.abs().max()),
+                                                   1e-30)
+                  for x, r in zip(gs["cuda"], gs["slice"]))
+        keep = rt.core.patterns.tdp_mask(tr, tc, dp, b, 1, torch.bool,
+                                         device="cuda")
+        for backend, g in gs.items():
+            gmap = {id(p): x for p, x in zip(leaves, g)}
+            for lp in params["layers"]:
+                ffn = lp["ffn"]
+                nz = (gmap[id(ffn["w_up"])].reshape(tr, tile, tc, tile) != 0
+                      ).any(3).any(1)
+                require(torch.equal(nz, keep), f"tdp {backend} dp={dp}: the "
+                        f"nonzero w_up gradient tiles are not the kept ones")
+                require(bool((gmap[id(ffn["w_gate"])] != 0).any(0).all())
+                        and bool((gmap[id(ffn["w_down"])] != 0).any(1).all()),
+                        f"tdp {backend} dp={dp}: w_gate / w_down gradient "
+                        f"not dense")
+        require(rel <= F32_GRAD_TOL, f"f32 tdp cuda dp={dp}: grad rel err "
+                f"{rel:.3e} > {F32_GRAD_TOL}")
+        out.append({"dtype": "float32", "family": "tdp", "backend": "cuda",
+                    "dp": dp, "bias": b, "max_leaf_rel_err": rel,
+                    "dropped_zero": True})
+        log(f"[grads] float32 tdp cuda dp={dp} b={b}: max over leaves of "
+            f"max|g - g_slice| / max|g_slice| = {rel:.3e} (tol "
+            f"{F32_GRAD_TOL}); w_up nonzero tiles = kept tiles, w_gate / "
+            f"w_down dense")
+        del gs
+    return out
+
+
 def grad_parity_phase(torch, rt, cfg):
     """One forward + backward of lm_loss at full width (batch 1 x 128) per
     dp in (2, 4, 8): every weight gradient on "cuda" and "fused" against
     "slice" — held to F32_GRAD_TOL of the leaf's max|g| in float32,
     reported in bf16 — and dropped blocks' gradients exactly zero in
-    both."""
-    import dataclasses
-
+    both; in float32 also the TDP plan (``tdp_grad_parity``)."""
     import numpy as np
     block = cfg.d_ff // cfg.pattern_nb
     plan = rt.core.build_plan("rdp", 0.5, nb=cfg.pattern_nb, dp_max=8,
@@ -692,6 +941,8 @@ def grad_parity_phase(torch, rt, cfg):
             loss, _ = rt.models.lm_loss(c, params, batch, pat)
             return torch.autograd.grad(loss, leaves)
 
+        if dtype == "float32":
+            out += tdp_grad_parity(torch, rt, c, params, leaves, batch)
         for dp in (2, 4, 8):
             b = dp - 1
             ref = grads("slice", dp, b)
@@ -707,7 +958,8 @@ def grad_parity_phase(torch, rt, cfg):
                 if dtype == "float32":
                     require(rel <= F32_GRAD_TOL, f"f32 {backend} dp={dp}: "
                             f"grad rel err {rel:.3e} > {F32_GRAD_TOL}")
-                out.append({"dtype": dtype, "backend": backend, "dp": dp,
+                out.append({"dtype": dtype, "family": "rdp",
+                            "backend": backend, "dp": dp,
                             "bias": b, "max_leaf_rel_err": rel,
                             "dropped_zero": zeros})
                 log(f"[grads] {dtype} {backend} dp={dp} b={b}: max over "
@@ -746,36 +998,40 @@ def train_run(torch, K, rt, cfg, plan, backend, steps=8):
                 for h in hist), f"{backend}: non-finite loss or grad norm")
     require(any(h["dp"] > 1 for h in hist), f"{backend}: no dp > 1 step")
     trainer.obs.watchdog.assert_clean()
-    log(f"[train] {backend}: {steps} steps in {wall:.2f} s, peak "
+    name = f"{plan.family} {backend}"
+    log(f"[train] {name}: {steps} steps in {wall:.2f} s, peak "
         f"{peak_gb:.1f} GB, buckets {[(h['dp'], h['bias']) for h in hist]}")
-    log(f"[train] {backend}: losses {[round(h['loss'], 4) for h in hist]}, "
+    log(f"[train] {name}: losses {[round(h['loss'], 4) for h in hist]}, "
         f"grad norms {[round(h['grad_norm'], 3) for h in hist]}")
-    log(f"[train] launches on the {backend}-backend train path: {launches}")
+    log(f"[train] launches on the {name} train path: {launches}")
     del trainer, params
     torch.cuda.empty_cache()
     return {"history": hist, "wall_s": wall, "peak_gb": peak_gb,
             "launches": launches}
 
 
-def train_step_bound_ms(cfg, tokens: int, dp: int, n_params: int):
+def train_step_bound_ms(cfg, tokens: int, dp: int, n_params: int,
+                        family: str = "rdp"):
     """Least times of one train step: (matmul FLOPs — 6 per weight per
-    token, FFN weights at 1/dp, attention scores left out — at the bf16
-    peak, AdamW's state traffic — 24 B a parameter: bf16 param read and
-    written, f32 grad read, f32 moments read and written — at the HBM
-    rate), in ms."""
+    token, the pattern's FFN weights at 1/dp (rdp: all three; tdp: w_up
+    only), attention scores left out — at the bf16 peak, AdamW's state
+    traffic — 24 B a parameter: bf16 param read and written, f32 grad read,
+    f32 moments read and written — at the HBM rate), in ms."""
     attn = cfg.d_model * cfg.head_dim * 2 * (cfg.n_heads + cfg.n_kv_heads)
-    ffn = 3 * cfg.d_model * cfg.d_ff / dp
+    ffn = cfg.d_model * cfg.d_ff * (3 / dp if family == "rdp"
+                                    else 1 / dp + 2)
     flops = 6 * tokens * (cfg.n_layers * (attn + ffn)
                           + cfg.d_model * cfg.vocab)
     return (flops / PEAK_FLOPS["bfloat16"] * 1e3,
             24 * n_params / HBM_BYTES_PER_S * 1e3)
 
 
-def train_step_table(torch, rt, cfg, plan):
+def train_step_table(torch, rt, cfg, plan, tcfg, tplan):
     """Eager train step (forward, backward, clip, AdamW at lr 0 so the
-    weights stay put) per (backend, dp) at batch 4 x 512: host-clock ms
-    with a synchronize, and the step's device time per kernel class from
-    torch.profiler."""
+    weights stay put) per (family, backend, dp) at batch 4 x 512: host-clock
+    ms with a synchronize, and the step's device time per kernel class from
+    torch.profiler.  ``tcfg`` / ``tplan``: the TDP rows' model (pattern_nb
+    12; the same weights) and plan."""
     params = rt.models.materialize(0, rt.models.init_lm(cfg), device="cuda")
     opt = rt.optim.AdamW()
     state = opt.init(params)
@@ -783,12 +1039,15 @@ def train_step_table(torch, rt, cfg, plan):
                                     global_batch=4).batch(0)
     n_params = sum(t.numel() for t in rt.tree.tree_leaves(params))
     rows = []
-    configs = [("dense", 1)] + [(be, dp) for be in ("slice", "cuda", "fused")
-                                for dp in (2, 4, 8)]
-    for backend, dp in configs:
-        pat = (plan.with_backend(backend).bind(dp, 0) if dp > 1
+    configs = ([("rdp", "dense", 1)]
+               + [("rdp", be, dp) for be in ("slice", "cuda", "fused")
+                  for dp in (2, 4, 8)]
+               + [("tdp", be, dp) for be in ("slice", "cuda") for dp in (2, 6)])
+    for family, backend, dp in configs:
+        c, pl = (cfg, plan) if family == "rdp" else (tcfg, tplan)
+        pat = (pl.with_backend(backend).bind(dp, 0) if dp > 1
                else rt.core.IDENTITY)
-        fn = rt.train.make_train_step(cfg, opt, pat=pat, device="cuda")
+        fn = rt.train.make_train_step(c, opt, pat=pat, device="cuda")
 
         def step(_i=0):
             fn(params, state, batch, 0.0)
@@ -802,13 +1061,14 @@ def train_step_table(torch, rt, cfg, plan):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) / n * 1e3
         flop_ms, adam_ms = train_step_bound_ms(cfg, batch["tokens"].size,
-                                               dp, n_params)
-        rows.append({"backend": backend, "dp": dp, "step_ms": host_ms,
-                     "flop_bound_ms": flop_ms, "adam_bytes_bound_ms": adam_ms,
+                                               dp, n_params, family)
+        rows.append({"family": family, "backend": backend, "dp": dp,
+                     "step_ms": host_ms, "flop_bound_ms": flop_ms,
+                     "adam_bytes_bound_ms": adam_ms,
                      "kernels": profile_step(torch, step, host_ms, n=1)})
-        log(f"[step] {backend:5s} dp={dp}: eager train step {host_ms:.1f} "
-            f"ms (bounds: matmul FLOPs {flop_ms:.2f} ms + AdamW bytes "
-            f"{adam_ms:.2f} ms)")
+        log(f"[step] {family} {backend:5s} dp={dp}: eager train step "
+            f"{host_ms:.1f} ms (bounds: matmul FLOPs {flop_ms:.2f} ms + "
+            f"AdamW bytes {adam_ms:.2f} ms)")
         log_profile(rows[-1]["kernels"])
     del params, state
     torch.cuda.empty_cache()
@@ -832,7 +1092,24 @@ def train_phase(torch, K, rt, shapes):
             "the fused backward did not rematerialize with rdp_matmul_cols")
     require(runs["fused"]["launches"][K.FUSED_FFN.name] > 0,
             "the fused-backend train path did not launch its forward kernel")
-    steps = train_step_table(torch, rt, cfg, plan)
+    # the TDP path: every dp > 1 step runs kernels 8 and 10 once a layer,
+    # a dp 2 step kernel 9 too (dp | 70 tile-columns); other periods take
+    # the mask-multiply dgrad
+    tcfg = dataclasses.replace(cfg, pattern_nb=TDP_NB)
+    tplan = rt.core.build_plan("tdp", 0.5, nb=TDP_NB, dp_max=8,
+                               backend="cuda")
+    run = runs["tdp_cuda"] = train_run(torch, K, rt, tcfg, tplan, "cuda")
+    dps = [h["dp"] for h in run["history"]]
+    want = {K.TDP_MATMUL.name: cfg.n_layers * sum(d > 1 for d in dps),
+            K.TDP_WGRAD.name: cfg.n_layers * sum(d > 1 for d in dps),
+            K.TDP_DGRAD.name: cfg.n_layers * dps.count(2)}
+    got = {k.name: run["launches"][k.name] for k in tdp_kernels(K)}
+    require(got == want, f"tdp train launches {got}, want {want}")
+    require(want[K.TDP_DGRAD.name] > 0, "no dp 2 step on the tdp train path")
+    require(all(run["launches"][k.name] == 0 for k in K.KERNELS
+                if k not in tdp_kernels(K)),
+            "the tdp train path launched an rdp kernel")
+    steps = train_step_table(torch, rt, cfg, plan, tcfg, tplan)
     return {"worst": worst, "worst_rel": worst_rel, "kernel_times": table,
             "grads": grads, "runs": runs, "steps": steps}
 
@@ -883,27 +1160,32 @@ def main() -> int:
 
     shapes = (1536, 8960, 70)       # qwen2-1.5b: d_model, d_ff, 8960/128
     worst, worst_rel, table = timed("kernels", kernel_phase, torch, K, shapes)
+    tdp_worst, tdp_worst_rel, tdp_table, tdp_checks = timed(
+        "tdp_kernels", tdp_kernel_phase, torch, K, *shapes[:2])
     serve = timed("serve", serve_phase, torch, K, rt)
     train = timed("train", train_phase, torch, K, rt, shapes)
     log(f"[phases] seconds "
         f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
-    # launches on the main paths: serving (cuda, fused) and training (cuda,
-    # fused), each counted from zero just before its run
+    # launches on the main paths: serving (rdp on cuda, fused; tdp on cuda)
+    # and training (rdp on cuda, fused; tdp on cuda), each counted from zero
+    # just before its run
     by_path = {k.name: {"serve": serve["launches"][k.name],
+                        "serve_tdp": serve["tdp_launches"][k.name],
                         **{f"train_{be}": run["launches"][k.name]
                            for be, run in train["runs"].items()}}
                for k in K.KERNELS}
-    worst |= train["worst"]
-    worst_rel |= train["worst_rel"]
-    fwd_shape = {"dp": 2, "M": 8}
+    worst |= train["worst"] | tdp_worst
+    worst_rel |= train["worst_rel"] | tdp_worst_rel
+    # times: the forward kernels at a decode width (M 8), the backward ones
+    # at a train step (M 2048), dp 2
     kernels_line = []
     for k in K.KERNELS:
-        rec = next((r for r in table if r["name"] == k.name
-                    and r["dp"] == fwd_shape["dp"]
-                    and r["M"] == fwd_shape["M"]), None)
-        if rec is None:
-            rec = next(r for r in train["kernel_times"] if r["name"] == k.name)
+        fwd_m = 8 if k in (K.RDP_COLS, K.RDP_ROWS, K.FUSED_FFN,
+                           K.TDP_MATMUL) else 2048
+        rec = next(r for r in table + train["kernel_times"] + tdp_table
+                   if r["name"] == k.name and r["dp"] == 2
+                   and r["M"] == fwd_m)
         kernels_line.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
@@ -920,6 +1202,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": built, "phase_s": phase_s, "kernel_times": table,
+        "tdp_kernel_times": tdp_table, "tdp_checks": tdp_checks,
         "serve": serve, "train": train, "kernels": kernels_line,
         "total_s": time.perf_counter() - t_start}, indent=1, default=float))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

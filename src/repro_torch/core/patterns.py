@@ -1,4 +1,5 @@
-"""Structured dropout patterns (the paper's §III-A): the RDP index algebra.
+"""Structured dropout patterns (the paper's §III-A/B): the RDP and TDP
+index algebra.
 
 An RDP pattern keeps every ``dp``-th block of hidden units starting at the
 bias ``b`` (0-based): block ``j`` of the kept set is ``(b + j·dp) mod nb``.
@@ -6,6 +7,10 @@ Dropping a hidden unit drops a column of the up/gate projections and a row
 of the down projection, so the kept weights form compact matrices and the
 FFN matmuls shrink to 1/dp.  ``dp`` fixes every shape; ``b`` only moves
 which blocks are read.
+
+A TDP pattern drops ``tile × tile`` synapse tiles of one weight matrix on a
+diagonal period: tile ``(i, j)`` is kept iff ``(i + j - b) % dp == 0``, so
+every tile-column keeps exactly ``tr/dp`` tiles (``dp | rows/tile``).
 
 The index helpers build int64 tensors on ``device`` (CPU unless given);
 ``np_kept_indices`` is the numpy twin used for host-side planning.
@@ -59,6 +64,23 @@ def rdp_mask(dim: int, dp: int, b: int, block: int = 1,
     i = torch.arange(nb, dtype=torch.int64, device=device)
     keep = ((i - int(b)) % dp) == 0
     return torch.repeat_interleave(keep.to(dtype), block)
+
+
+def tdp_mask(rows: int, cols: int, dp: int, b: int, tile: int,
+             dtype=torch.float32, *, device="cpu") -> torch.Tensor:
+    """Dense 0/1 keep-mask over a ``(rows, cols)`` weight for TDP: tile
+    ``(i, j)`` kept iff ``(i + j - b) % dp == 0`` (oracle semantics)."""
+    tr, tc = num_blocks(rows, tile), num_blocks(cols, tile)
+    i = torch.arange(tr, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(tc, dtype=torch.int64, device=device)[None, :]
+    keep = (((i + j - int(b)) % dp) == 0).to(dtype)
+    return keep.repeat_interleave(tile, 0).repeat_interleave(tile, 1)
+
+
+def tdp_kept_row_tile(j, slot, dp: int, b: int):
+    """Row-tile index of the ``slot``-th kept tile in tile-column ``j``:
+    ``(b - j) mod dp + slot·dp`` (ints or int64 tensors, broadcast)."""
+    return (int(b) - j) % dp + slot * dp
 
 
 def compact_columns(w: torch.Tensor, dp: int, b: int,

@@ -5,7 +5,7 @@ semantics as ``repro.core.plan``:
 
     BACKENDS       how compact matmuls execute: "slice" | "gather" | "cuda"
                    | "fused"
-    FAMILIES       what a pattern drops: "identity" | "rdp"
+    FAMILIES       what a pattern drops: "identity" | "rdp" | "tdp"
     BIAS_POLICIES  how per-layer biases derive from the sampled base bias
 
 ``DropoutPlan`` is the distribution K over periods plus everything needed to
@@ -15,8 +15,10 @@ concrete (family, dp, bias) pattern, consumed by the model layers.
 
 The "cuda" backend is the counterpart of the JAX "pallas" one: the compact
 up/gate/down products run through the hand-written kernels in
-``kernels/rdp_matmul`` and their gradients through ``kernels/rdp_matmul_bwd``;
-"fused" runs the whole FFN forward in one kernel (``kernels/fused_ffn``).
+``kernels/rdp_matmul`` (rdp) or ``kernels/tdp_matmul`` (tdp's up
+projection) and their gradients through ``kernels/rdp_matmul_bwd`` /
+``kernels/tdp_matmul_bwd``; "fused" runs the whole rdp FFN forward in one
+kernel (``kernels/fused_ffn``).
 Every backend is differentiable.  Single-device only: the JAX package's mesh
 constraints and shard_map dispatch have no counterpart here yet.
 """
@@ -81,11 +83,12 @@ register_backend("slice", "strided block slices of the weights, then "
                           "library matmuls")
 register_backend("gather", "index_select over kept unit indices, then "
                            "library matmuls")
-register_backend("cuda", "compact CUDA kernels: kept column/row blocks are "
-                         "the only weights read, forward (kernels/"
-                         "rdp_matmul) and backward (kernels/rdp_matmul_bwd "
-                         "through kernels/autodiff); their plain versions "
-                         "on CPU tensors")
+register_backend("cuda", "compact CUDA kernels: kept column/row blocks "
+                         "(rdp) or kept tiles (tdp) are the only weights "
+                         "read, forward (kernels/rdp_matmul, tdp_matmul) "
+                         "and backward (kernels/rdp_matmul_bwd, "
+                         "tdp_matmul_bwd through kernels/autodiff); their "
+                         "plain versions on CPU tensors")
 register_backend("fused", "one CUDA kernel for up + activation + gate + "
                           "down over kept blocks (kernels/fused_ffn); the "
                           "backward rematerializes the hidden activation "
@@ -253,6 +256,20 @@ def _rdp_compact_ffn(x, w_up, w_down, w_gate, *, dp, bias, nb, backend, act):
     return h @ w_down
 
 
+def _tdp_ffn_body(x, w_up, w_down, w_gate, *, dp, bias, tile, backend, act):
+    """The TDP FFN: diagonal tiles of the up projection dropped, ×dp; gate
+    and down projections dense."""
+    if backend == "cuda":
+        from ..kernels import ops as KO
+        h = KO.tdp_mm(x, w_up, bias, dp=dp, tile=tile)
+    else:
+        h = (x @ (w_up * P.tdp_mask(w_up.shape[0], w_up.shape[1], dp, bias,
+                                    tile, w_up.dtype,
+                                    device=w_up.device))) * dp
+    h = act(h) * (x @ w_gate) if w_gate is not None else act(h)
+    return h @ w_down
+
+
 # ==========================================================================
 # Built-in families
 # ==========================================================================
@@ -287,6 +304,28 @@ class RdpFamily(PatternFamily):
         """Compact FFN over kept hidden neurons."""
         return _rdp_compact_ffn(x, w_up, w_down, w_gate, dp=dp, bias=bias,
                                 nb=nb, backend=backend, act=act)
+
+
+@register_family
+class TdpFamily(PatternFamily):
+    """Tile-based dropout (paper §III-B): drop synapse *tiles* of the up
+    projection on the diagonal-period pattern (DropConnect-style).  The
+    tile is ``d_model // nb``; it must divide d_ff as well."""
+
+    name = "tdp"
+    backends = ("slice", "cuda")
+
+    def apply_ffn(self, x, w_up, w_down, w_gate, *, dp, bias, nb, backend,
+                  act):
+        """FFN with a diagonal-tile-dropped up projection (slice / cuda)."""
+        tile = max(w_up.shape[0] // nb, 1)
+        return _tdp_ffn_body(x, w_up, w_down, w_gate, dp=dp, bias=bias,
+                             tile=tile, backend=backend, act=act)
+
+    def oracle_ffn(self, x, w_up, w_down, w_gate, *, dp, bias, nb, act):
+        """Mask-multiply TDP reference (dense matmul against masked W)."""
+        return self.apply_ffn(x, w_up, w_down, w_gate, dp=dp, bias=bias,
+                              nb=nb, backend="slice", act=act)
 
 
 # ==========================================================================

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the compact RDP forward and backward
-(``csrc/*.cu``).
+"""Hand-written CUDA kernels for the compact RDP and TDP forward and
+backward (``csrc/*.cu``).
 
 Each kernel sits beside its plain PyTorch version (taken for CPU tensors)
 and a ``Kernel`` record whose ``launches`` count its wrapper bumps on every
@@ -18,9 +18,12 @@ from .rdp_matmul_bwd import (COLS_DGRAD, COLS_WGRAD, ROWS_DGRAD, ROWS_WGRAD,
                              rdp_cols_wgrad, rdp_cols_wgrad_plain,
                              rdp_rows_dgrad, rdp_rows_dgrad_plain,
                              rdp_rows_wgrad, rdp_rows_wgrad_plain)
+from .tdp_matmul import TDP_MATMUL, tdp_matmul, tdp_matmul_plain
+from .tdp_matmul_bwd import (TDP_DGRAD, TDP_WGRAD, tdp_dgrad, tdp_dgrad_plain,
+                             tdp_wgrad, tdp_wgrad_plain)
 
 KERNELS = [RDP_COLS, RDP_ROWS, FUSED_FFN, COLS_DGRAD, COLS_WGRAD, ROWS_DGRAD,
-           ROWS_WGRAD]
+           ROWS_WGRAD, TDP_MATMUL, TDP_DGRAD, TDP_WGRAD]
 
 
 def reset_launches() -> None:
@@ -39,4 +42,6 @@ __all__ = [
     "rdp_cols_dgrad", "rdp_cols_wgrad", "rdp_rows_dgrad", "rdp_rows_wgrad",
     "rdp_cols_dgrad_plain", "rdp_cols_wgrad_plain", "rdp_rows_dgrad_plain",
     "rdp_rows_wgrad_plain",
+    "TDP_MATMUL", "TDP_DGRAD", "TDP_WGRAD", "tdp_matmul", "tdp_dgrad",
+    "tdp_wgrad", "tdp_matmul_plain", "tdp_dgrad_plain", "tdp_wgrad_plain",
 ]

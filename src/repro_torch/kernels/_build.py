@@ -39,6 +39,13 @@ SIGNATURES = {
         for name in ("rdp_cols_dgrad", "rdp_cols_wgrad", "rdp_rows_dgrad",
                      "rdp_rows_wgrad")
     },
+    "tdp_matmul": {
+        "tdp_matmul": [_P] * 4 + [_I] * 10 + [_F, _P],
+    },
+    "tdp_matmul_bwd": {
+        name: [_P] * 4 + [_I] * 9 + [_F, _P]
+        for name in ("tdp_dgrad", "tdp_wgrad")
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

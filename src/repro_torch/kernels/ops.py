@@ -4,7 +4,9 @@
 projections unscaled (each cast to the activation dtype), then
 ``act(h) * g``, then ×dp, then the unscaled down projection.  ``dp == 1``
 is a plain dense product.  Each wrapper launches its CUDA kernel on CUDA
-tensors and takes the kernel's plain version on CPU tensors.
+tensors and takes the kernel's plain version on CPU tensors.  ``tdp_mm``
+is the TDP up projection in ``repro.kernels.ops.tdp_mm``'s order: a plain
+product at ``dp == 1``, else the masked product on 2-D rows.
 
 Every op is differentiable on both devices: the compact products go
 through the autograd Functions of ``autodiff`` and ``fused_ffn``, whose
@@ -14,7 +16,8 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-from .autodiff import rdp_matmul_cols_vjp, rdp_matmul_rows_vjp
+from .autodiff import (rdp_matmul_cols_vjp, rdp_matmul_rows_vjp,
+                       tdp_matmul_vjp)
 from .fused_ffn import fused_ffn_vjp
 
 
@@ -35,6 +38,15 @@ def rdp_down(a_compact, w, bias: int, *, dp: int, block: int):
     lead = a_compact.shape[:-1]
     out = rdp_matmul_rows_vjp(a_compact.reshape(-1, a_compact.shape[-1]),
                               w, bias, dp, block)
+    return out.reshape(*lead, -1)
+
+
+def tdp_mm(a, w, bias: int, *, dp: int, tile: int):
+    """TDP masked matmul: [., K] @ [K, N] -> [., N], ×dp scale."""
+    if dp == 1:
+        return a @ w
+    lead = a.shape[:-1]
+    out = tdp_matmul_vjp(a.reshape(-1, a.shape[-1]), w, bias, dp, tile, True)
     return out.reshape(*lead, -1)
 
 

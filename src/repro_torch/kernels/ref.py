@@ -1,4 +1,5 @@
-"""Gather-then-matmul oracles for the compact RDP kernels.
+"""Oracles for the compact RDP kernels (gather-then-matmul) and the TDP
+kernel (mask-multiply).
 
 Twins of the JAX package's ``kernels/ref.py``: they define what each kernel
 computes.  Every kernel module also keeps its own plain version (f32
@@ -25,3 +26,13 @@ def rdp_matmul_rows_ref(a_compact, w, dp: int, b: int, *, block: int,
     if scale and dp > 1:
         c = c * dp
     return c.to(a_compact.dtype)
+
+
+def tdp_matmul_ref(a, w, dp: int, b: int, *, tile: int, scale: bool = True):
+    """C = a @ (w ∘ diagonal-TDP-mask) (×dp if ``scale``)  ([M, K] @ [K, N])."""
+    mask = P.tdp_mask(w.shape[0], w.shape[1], dp, b, tile, w.dtype,
+                      device=w.device)
+    c = a @ (w * mask)
+    if scale and dp > 1:
+        c = c * dp
+    return c.to(a.dtype)
